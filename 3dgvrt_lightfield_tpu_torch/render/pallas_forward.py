@@ -1,0 +1,169 @@
+"""The fused forward tile composite: its CUDA kernel, plain version and dispatch.
+
+Counterpart of the JAX package's `render/pallas_forward.py` and of the
+forward half of `render/pallas_vjp.py`.  The Pallas kernel
+(`pallas_vjp._fwd_kernel`) becomes `csrc/tile_forward.cu`, launched by
+`tile_forward`; `forward_tiles_reference` is its plain PyTorch version.
+
+Chunks are laid out in tile order (binning pads each tile's sorted pair list
+to whole chunks), so tile t owns the contiguous chunk run
+[start[t], start[t] + count[t]) with count = ceil(tile_counts / G) and start
+its exclusive prefix sum (`tile_chunk_runs`).  Both versions walk those runs;
+trailing dead chunks are never visited.
+
+Rendering is forward only in this package: the CUDA kernel has no backward
+yet, so every entry point runs under `torch.no_grad()` on both paths.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from ..config import RenderConfig
+from .binning import BinnedScene
+from .tile_math import ACC_T, BACKGROUND, RAY_ROWS, chunk_update, init_acc
+
+IMPLS = ("cuda", "torch")
+#: tiles per step of the plain version: keeps its (B, G, R) temporaries at a
+#: few GB at 1080p
+_TILE_BATCH = 1024
+
+
+def resolve_impl(impl: str, device: torch.device) -> str:
+    """"auto" -> "cuda" on a CUDA device, "torch" (the plain version) on the
+    CPU.  "cuda" needs a CUDA device; "torch" on CUDA is taken only when
+    asked for by name."""
+    if impl == "auto":
+        return "cuda" if device.type == "cuda" else "torch"
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected auto|cuda|torch")
+    if impl == "cuda" and device.type != "cuda":
+        raise ValueError(f"impl='cuda' needs a CUDA device, got {device}")
+    return impl
+
+
+def tile_chunk_runs(tile_counts: torch.Tensor, num_chunks: int, g: int):
+    """(start, count) int32 of each tile's contiguous chunk run, clipped to
+    the `num_chunks` that exist (an overflowing plan truncates the tail)."""
+    nch = torch.div(tile_counts.long() + g - 1, g, rounding_mode="floor")
+    start = torch.cumsum(nch, 0) - nch
+    count = torch.clamp_min(torch.clamp_max(start + nch, num_chunks) - start, 0)
+    return start.to(torch.int32), count.to(torch.int32)
+
+
+def _background_fix(acc, tile_counts):
+    """Tiles that received no chunk are sky: [0 0 0 0 1 0 0 0]."""
+    bg = torch.tensor(BACKGROUND, dtype=acc.dtype, device=acc.device)
+    return torch.where((tile_counts == 0)[:, None, None], bg[None, :, None], acc)
+
+
+def _composite_plain(chunks, rays, tile_counts,
+                     cfg: RenderConfig) -> torch.Tensor:
+    """Plain version of the kernel: the k-th chunk of every live tile at once,
+    in batches of `_TILE_BATCH` tiles; a tile leaves the walk once its run
+    ends or no ray of it is above min_transmittance."""
+    num_tiles, _, r = rays.shape
+    start, count = tile_chunk_runs(tile_counts, chunks.shape[0],
+                                   cfg.chunk_size)
+    start, count = start.long(), count.long()
+    acc = init_acc(r, rays.device, (num_tiles,))
+    for k in range(int(count.max()) if num_tiles else 0):
+        alive = (count > k) & (acc[:, ACC_T, :].amax(dim=1)
+                               > cfg.min_transmittance)
+        for tiles in torch.nonzero(alive).squeeze(1).split(_TILE_BATCH):
+            acc[tiles] = chunk_update(rays[tiles], chunks[start[tiles] + k],
+                                      acc[tiles], cfg)
+    return _background_fix(acc, tile_counts)
+
+
+def _check_kernel_inputs(chunks, rays, tile_counts, cfg: RenderConfig):
+    num_chunks, g, cols = chunks.shape
+    num_tiles, rows, r = rays.shape
+    for name, x, dtype in (("chunks", chunks, torch.float32),
+                           ("rays", rays, torch.float32),
+                           ("tile_counts", tile_counts, torch.int32)):
+        if x.device != chunks.device:
+            raise ValueError(f"{name} is on {x.device}, chunks on "
+                             f"{chunks.device}")
+        if x.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if cols != 64 or rows != RAY_ROWS or g != cfg.chunk_size:
+        raise ValueError(f"bad shapes: chunks {tuple(chunks.shape)} "
+                         f"(G={cfg.chunk_size}, 64), rays {tuple(rays.shape)}")
+    if tile_counts.shape != (num_tiles,):
+        raise ValueError(f"tile_counts {tuple(tile_counts.shape)} != "
+                         f"({num_tiles},)")
+    if not (1 <= r <= 1024 and 1 <= g <= 128):
+        raise ValueError(f"the kernel takes R <= 1024 rays and G <= 128 "
+                         f"gaussians per chunk, got R={r}, G={g}")
+    if chunks.data_ptr() % 16:
+        raise ValueError("chunks must be 16-byte aligned")
+
+
+def tile_forward(chunks: torch.Tensor, rays: torch.Tensor,
+                 tile_counts: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+    """Fused forward composite: (num_tiles, 8, R) accumulators.
+
+    chunks (C, G, 64) f32, rays (num_tiles, 24, R) f32, tile_counts
+    (num_tiles,) i32.  On CUDA tensors this launches `csrc/tile_forward.cu`
+    on the current stream (no synchronisation) and adds one to
+    `tile_forward.launches`; on CPU tensors it runs the plain version.
+    """
+    if chunks.device.type == "cpu":
+        return _composite_plain(chunks, rays, tile_counts, cfg)
+    if chunks.device.type != "cuda":
+        raise ValueError(f"tile_forward runs on CUDA or the CPU, not "
+                         f"{chunks.device}")
+    _check_kernel_inputs(chunks, rays, tile_counts, cfg)
+    lib = _build.load("tile_forward")
+    num_tiles, _, r = rays.shape
+    start, count = tile_chunk_runs(tile_counts, chunks.shape[0],
+                                   cfg.chunk_size)
+    acc = torch.empty((num_tiles, 8, r), dtype=torch.float32,
+                      device=chunks.device)
+    with torch.cuda.device(chunks.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.gvrt_tile_forward(
+            chunks.data_ptr(), rays.data_ptr(), start.data_ptr(),
+            count.data_ptr(), acc.data_ptr(), num_tiles, r, cfg.chunk_size,
+            cfg.kernel_degree, cfg.max_alpha, cfg.alpha_min,
+            cfg.hit_min_response, cfg.min_transmittance,
+            int(cfg.transmittance_prod), stream)
+    if err != 0:
+        raise RuntimeError(f"tile_forward kernel launch failed: CUDA error "
+                           f"{err}")
+    tile_forward.launches += 1
+    return acc
+
+
+#: kernel launches since the last reset (plain-version calls do not count)
+tile_forward.launches = 0
+
+
+def forward_tiles(binned: BinnedScene, rays_tiled: torch.Tensor,
+                  cfg: RenderConfig) -> torch.Tensor:
+    """Run the fused kernel -> (num_tiles, 8, R) [r g b depth T hits 0 0]."""
+    if rays_tiled.device.type != "cuda":
+        raise ValueError(f"impl='cuda' needs CUDA tensors, got "
+                         f"{rays_tiled.device}")
+    return tile_forward(binned.chunks, rays_tiled, binned.tile_counts, cfg)
+
+
+def forward_tiles_reference(binned: BinnedScene, rays_tiled: torch.Tensor,
+                            cfg: RenderConfig) -> torch.Tensor:
+    """Plain PyTorch version of the fused kernel, on any device."""
+    return _composite_plain(binned.chunks, rays_tiled, binned.tile_counts, cfg)
+
+
+def forward_dispatch(binned: BinnedScene, rays_tiled: torch.Tensor,
+                     cfg: RenderConfig, impl: str) -> torch.Tensor:
+    """One impl -> kernel dispatch for every render path ("cuda" | "torch")."""
+    with torch.no_grad():
+        if impl == "cuda":
+            return forward_tiles(binned, rays_tiled, cfg)
+        if impl == "torch":
+            return forward_tiles_reference(binned, rays_tiled, cfg)
+    raise ValueError(f"unknown impl {impl!r}")

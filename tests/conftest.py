@@ -44,3 +44,9 @@ def _clear_jax_caches_between_modules():
     yield
     import jax
     jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (a CUDA kernel has no CPU "
+                   "mode); skips without one")

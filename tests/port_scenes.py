@@ -1,0 +1,41 @@
+"""Scenes shared by the PyTorch port's parity tests (tests/test_torch_*.py).
+
+Scenes are built with the JAX package's generator and carried into the port
+as NumPy arrays through `GaussianModel.from_numpy`, so both packages render
+exactly the same Gaussians.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+
+import gvrt_tpu as g3
+import gvrt_tpu_torch as gt
+
+#: the small-tile config of tests/test_tiled.py
+CFG_T8 = g3.DEFAULT_CONFIG.replace(tile_size=8, chunk_size=128)
+
+
+def jax_scene(n=128, seed=0, spread=0.8, scale_range=(-4.5, -2.5)):
+    model = g3.random_gaussians(jax.random.key(seed), n, extent=spread,
+                                scale_range=scale_range)
+    model.means = model.means.at[:, 2].add(-3.0)
+    return model
+
+
+def carry(model) -> "gt.GaussianModel":
+    """The JAX model's six leaves -> a port model on the CPU."""
+    return gt.GaussianModel.from_numpy(
+        {k: np.asarray(getattr(model, k)) for k in gt.models.gaussians.LEAVES},
+        device="cpu")
+
+
+def torch_cfg(cfg) -> "gt.RenderConfig":
+    """The port's RenderConfig with the same field values as a JAX one."""
+    return gt.RenderConfig(**{f.name: getattr(cfg, f.name)
+                              for f in dataclasses.fields(cfg)})
+
+
+def camera(res=32, fov=60.0, height=None):
+    return g3.Camera.from_fovy(res, height or res, fov, np.eye(4))
