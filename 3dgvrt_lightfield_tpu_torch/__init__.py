@@ -19,6 +19,8 @@ from . import io
 from . import models
 from . import render
 from . import utils
+from . import parallel
+from . import train
 
 from .models.gaussians import GaussianModel, random_gaussians
 from .io.cameras import Camera, load_nerf_cameras, perspective_vulkan

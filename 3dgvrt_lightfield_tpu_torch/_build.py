@@ -2,8 +2,8 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on its own
 into `build/kernels/lib<name>_<hash>.so` at the repository root, keyed on a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  There is no fallback: a missing nvcc or a
+hash of the source, the shared headers (`csrc/*.cuh`) and the flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is.  There is no fallback: a missing nvcc or a
 failed build raises.
 """
 
@@ -29,8 +29,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "tile_forward": {
-        "gvrt_tile_forward": ([_P, _P, _P, _P, _P, _I, _I, _I, _I,
+        "gvrt_tile_forward": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _F, _F, _F, _F, _I, _P], ctypes.c_int),
+    },
+    "tile_backward": {
+        "gvrt_tile_backward": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _F, _F, _F, _F, _I, _P],
+                               ctypes.c_int),
+        "gvrt_tile_backward_smem": ([_I, _I], ctypes.c_int),
+    },
+    "segment_reduce": {
+        "gvrt_segment_reduce": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+                                ctypes.c_int),
     },
 }
 
@@ -48,9 +58,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Build path keyed on the source, every shared header and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for src in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC_DIR, src), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 

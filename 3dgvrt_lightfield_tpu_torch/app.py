@@ -5,6 +5,7 @@ Subcommands (the JAX package's CLI, as far as this port reaches):
   render     orbit or dataset-camera renders -> PNG sequence
   benchmark  warmup + timed fps loop, CSV out   (-b -bw -br -bf -bt)
   info       device / scene info
+  train      Adam fine-tune on one card (self-distillation or --images-dir)
 
 Everything runs on the card unless ``--device cpu`` is given.
 
@@ -108,7 +109,8 @@ def cmd_render(args):
     if args.dump_poses:
         _dump_poses(cams, os.path.join(args.out, "camera_poses.json"))
     for i, cam in enumerate(cams):
-        out = r.render(model, cam)
+        with torch.no_grad():
+            out = r.render(model, cam)
         path = os.path.join(args.out, f"{cam.name or i}.png")
         save_png(path, out["rgb"].cpu().numpy())
         print(path)
@@ -134,7 +136,8 @@ def cmd_benchmark(args):
     r.plan(model, [cam])
 
     def frame():
-        r.render(model, cam)
+        with torch.no_grad():
+            r.render(model, cam)
         if r.device.type == "cuda":
             torch.cuda.synchronize(r.device)
 
@@ -161,6 +164,94 @@ def cmd_info(args):
         print(f"abnormal particles: {(~keep).sum()}")
 
 
+#: train options of the JAX CLI whose paths are not ported yet
+_NOT_PORTED = {
+    "bands": "banded training, ROADMAP.md section 1 item 8",
+    "span_bands": "banded training, ROADMAP.md section 1 item 8",
+    "balance_bands": "banded training, ROADMAP.md section 1 item 8",
+    "sort_scene": "sorted_for_camera, ROADMAP.md section 1 item 8",
+    "optimize_poses": "pose refinement, ROADMAP.md section 1 item 9",
+    "perturb_poses": "pose refinement, ROADMAP.md section 1 item 9",
+    "devices": "the sharded trainer, ROADMAP.md section 1 item 11",
+}
+
+
+def cmd_train(args):
+    from .config import DEFAULT_CONFIG
+    from .io.image import load_png
+    from .parallel import camera_batch
+    from .render.tiled import TiledRenderer
+    from .train import TrainConfig, Trainer
+    from .utils.metrics import psnr
+    for opt, where in _NOT_PORTED.items():
+        if getattr(args, opt):
+            raise SystemExit(f"train --{opt.replace('_', '-')}: not ported "
+                             f"yet ({where})")
+    if args.optimizer != "adam" or args.banded_remat != "full":
+        raise SystemExit(f"train --optimizer {args.optimizer} / "
+                         f"--banded-remat {args.banded_remat}: not ported yet "
+                         f"(ROADMAP.md section 1 items 8-9)")
+    model = _load_model(args)
+    cams = _cameras(args, model)
+    if args.images_dir:
+        targets, kept = [], []
+        for cam in cams:
+            path = os.path.join(args.images_dir, cam.name + ".png")
+            if os.path.exists(path):
+                targets.append(load_png(path).astype(np.float32) / 255.0)
+                kept.append(cam)
+        cams = kept
+    else:
+        # self-distillation: fit to the model's own renders
+        r = TiledRenderer(args.width, args.height, DEFAULT_CONFIG,
+                          impl=args.impl, device=args.device)
+        r.plan(model, cams[:4])
+        with torch.no_grad():
+            targets = [r.render(model, c)["rgb"].cpu().numpy() for c in cams]
+    planner = TiledRenderer(args.width, args.height, DEFAULT_CONFIG,
+                            impl=args.impl, device=args.device)
+    capacity = planner.plan(model, cams[: min(8, len(cams))])
+    tc = TrainConfig(total_steps=args.steps, optimizer=args.optimizer)
+    trainer = Trainer(args.width, args.height, DEFAULT_CONFIG, tc, capacity,
+                      impl=args.impl, device=args.device)
+    state = trainer.init(model)
+    start_step = 0
+    if args.ckpt_dir:
+        from .train import restore_checkpoint
+        state, restored = restore_checkpoint(args.ckpt_dir, state)
+        if restored is not None:
+            start_step = restored + 1
+            print(f"resumed from checkpoint step {restored}")
+    dev = trainer.device
+    rng = np.random.default_rng(0)
+    # held-out PSNR on cams[0], which the training pool EXCLUDES
+    eval_r = TiledRenderer(args.width, args.height, DEFAULT_CONFIG,
+                           capacity=capacity, impl=args.impl, device=dev)
+    train_pool = np.arange(1, len(cams)) if len(cams) > 1 else np.arange(1)
+    bsz = min(args.batch, len(train_pool))
+    for step in range(start_step, args.steps):
+        idx = rng.choice(train_pool, size=bsz, replace=False)
+        batch = camera_batch([cams[i] for i in idx], DEFAULT_CONFIG, dev)
+        tgt = torch.stack([torch.as_tensor(targets[i], device=dev)
+                           for i in idx])
+        state, loss = trainer.step(state, batch, tgt)
+        if step % max(1, args.steps // 20) == 0:
+            with torch.no_grad():
+                out = eval_r.render(state[0], cams[0])
+            p = psnr(out["rgb"].cpu().numpy() * 255.0,
+                     np.asarray(targets[0]) * 255.0)
+            print(f"step {step}: loss {float(loss):.6f} psnr {p:.2f}")
+        if args.ckpt_dir and args.ckpt_every and \
+                (step + 1) % args.ckpt_every == 0:
+            from .train import save_checkpoint
+            save_checkpoint(args.ckpt_dir, state, step)
+    if args.ckpt_dir:
+        from .train import save_checkpoint
+        save_checkpoint(args.ckpt_dir, state, args.steps - 1)
+    state[0].to_ply(args.out)
+    print(f"saved fine-tuned model to {args.out}")
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="3dgvrt_lightfield_tpu_torch",
                                 description=__doc__)
@@ -185,6 +276,38 @@ def main(argv=None):
     pb.add_argument("--benchframetimes", action="store_true", default=True)
     pb.add_argument("--frames", type=int, default=1)
     pb.set_defaults(fn=cmd_benchmark)
+
+    pt = sub.add_parser("train", help="Adam fine-tune on one card")
+    _common(pt)
+    pt.add_argument("--images-dir", help="target PNGs named per camera")
+    pt.add_argument("--steps", type=int, default=200)
+    pt.add_argument("--batch", type=int, default=1)
+    pt.add_argument("--frames", type=int, default=16)
+    pt.add_argument("--out", default="finetuned.ply")
+    pt.add_argument("--optimizer", default="adam",
+                    choices=["adam", "adafactor"],
+                    help="adafactor is not ported yet")
+    pt.add_argument("--ckpt-dir", help="checkpoint/resume directory")
+    pt.add_argument("--ckpt-every", type=int, default=50,
+                    help="save a checkpoint every N steps")
+    # options of the JAX CLI whose paths are not ported yet: kept in the
+    # parser, refused at run time
+    pt.add_argument("--bands", type=int, default=0, help="not ported yet")
+    pt.add_argument("--span-bands", action="store_true",
+                    help="not ported yet")
+    pt.add_argument("--balance-bands", action="store_true",
+                    help="not ported yet")
+    pt.add_argument("--sort-scene", action="store_true",
+                    help="not ported yet")
+    pt.add_argument("--banded-remat", default="full",
+                    choices=["full", "gather", "none"],
+                    help="not ported yet (banded training)")
+    pt.add_argument("--devices", type=int, default=0, help="not ported yet")
+    pt.add_argument("--optimize-poses", type=int, default=0,
+                    metavar="STEPS", help="not ported yet")
+    pt.add_argument("--perturb-poses", type=float, default=0.0,
+                    metavar="SIGMA", help="not ported yet")
+    pt.set_defaults(fn=cmd_train)
 
     pi = sub.add_parser("info", help="device + scene info")
     pi.add_argument("--ply")

@@ -68,8 +68,8 @@ class RenderConfig:
     #: Track transmittance as a direct product of (1 - alpha) (True) or as
     #: exp(sum(log1p(-alpha))) per chunk, the reference's log-space form.
     transmittance_prod: bool = True
-    #: Kept for parity with the JAX configuration; ray cotangents belong to
-    #: the backward pass, which this port does not have yet.
+    #: Emit cotangents of the tile rays in the backward (for pose
+    #: refinement); off, gradients w.r.t. the rays are silent zeros.
     ray_gradients: bool = False
 
     def replace(self, **kw) -> "RenderConfig":

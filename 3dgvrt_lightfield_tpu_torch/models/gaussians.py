@@ -43,6 +43,24 @@ class ActivatedGaussians(NamedTuple):
         return self.sh_flat.reshape(-1, 3, 16).transpose(1, 2)
 
 
+def activate_leaves(means, scales_log, quats, opacity_logit, sh_dc,
+                    sh_rest) -> ActivatedGaussians:
+    """The activated view of six raw parameter tensors (LEAVES order)."""
+    q = normalize_quat(quats)
+    scales = scale_activation(scales_log)
+    sh_flat = torch.cat(
+        [torch.cat([sh_dc[:, c:c + 1], sh_rest[:, :, c]], dim=1)
+         for c in range(3)], dim=1)
+    return ActivatedGaussians(
+        means=means,
+        scales=scales,
+        inv_scales=1.0 / scales,
+        rot9=quat_to_rot9(q),
+        densities=sigmoid(opacity_logit),
+        sh_flat=sh_flat,
+    )
+
+
 class GaussianModel(nn.Module):
     """Six raw parameter leaves: means (N, 3), scales_log (N, 3), quats
     (N, 4) WXYZ unnormalized, opacity_logit (N,), sh_dc (N, 3), sh_rest
@@ -103,20 +121,12 @@ class GaussianModel(nn.Module):
         save_splats(path, self.to_splats())
 
     # ---- activated view ---------------------------------------------------
+    def leaves(self) -> tuple:
+        """The six raw parameters, in `LEAVES` order."""
+        return tuple(getattr(self, k) for k in LEAVES)
+
     def activate(self) -> ActivatedGaussians:
-        q = normalize_quat(self.quats)
-        scales = scale_activation(self.scales_log)
-        sh_flat = torch.cat(
-            [torch.cat([self.sh_dc[:, c:c + 1], self.sh_rest[:, :, c]], dim=1)
-             for c in range(3)], dim=1)
-        return ActivatedGaussians(
-            means=self.means,
-            scales=scales,
-            inv_scales=1.0 / scales,
-            rot9=quat_to_rot9(q),
-            densities=sigmoid(self.opacity_logit),
-            sh_flat=sh_flat,
-        )
+        return activate_leaves(*self.leaves())
 
     # ---- filtering ----------------------------------------------------------
     def abnormal_mask(self) -> torch.Tensor:

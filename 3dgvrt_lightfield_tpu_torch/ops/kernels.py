@@ -5,8 +5,8 @@ Reference math:
   - kernel_scale:      shaders/glsl/VulkanFullRT/particlePrimitives.comp:81-105
   - activations (exp scale / sigmoid opacity): particlePrimitives.comp:149-151
 
-The tile kernel (csrc/tile_forward.cu) repeats `particle_response` branch by
-branch; keep the two in step.
+The tile kernels repeat `particle_response` and `particle_response_grad`
+branch by branch (csrc/tile_common.cuh); keep them in step.
 """
 
 from __future__ import annotations
@@ -45,6 +45,32 @@ def particle_response(gray_dist: torch.Tensor, degree: int = 4) -> torch.Tensor:
                                0.0)
     # default: quadratic (true Gaussian)
     return torch.exp(-0.5 * gray_dist)
+
+
+def particle_response_grad(gray_dist: torch.Tensor, resp: torch.Tensor,
+                           degree: int = 4) -> torch.Tensor:
+    """d(particle_response)/d(gray_dist), given the forward response.
+
+    Used by the hand-derived backward (render/tile_math.chunk_core_bwd) so
+    the transcendental is not recomputed; matches autodiff of
+    `particle_response` for each degree branch.
+    """
+    s = _RESPONSE_S.get(degree)
+    if degree == 8:
+        d2 = gray_dist * gray_dist
+        return resp * s * 4.0 * d2 * gray_dist
+    if degree == 5:
+        return resp * s * 2.5 * gray_dist * torch.sqrt(gray_dist)
+    if degree == 4:
+        return resp * s * 2.0 * gray_dist
+    if degree == 3:
+        return resp * s * 1.5 * torch.sqrt(gray_dist)
+    if degree == 1:
+        return resp * s * 0.5 / torch.sqrt(torch.clamp_min(gray_dist, 1e-20))
+    if degree == 0:
+        root = torch.sqrt(torch.clamp_min(gray_dist, 1e-20))
+        return torch.where(1.0 + s * root > 0.0, s * 0.5 / root, 0.0)
+    return -0.5 * resp
 
 
 def kernel_scale(density: torch.Tensor,

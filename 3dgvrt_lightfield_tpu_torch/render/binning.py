@@ -16,6 +16,12 @@ Index math is int64 (torch's index type); the topology's arrays leave as
 int32, like the JAX package's.  Capacities are static per plan: pairs that do
 not fit are dropped and counted in `overflow`, and the renderer re-plans.
 `plan_capacity` measures a scene+camera once on the host to pick them.
+
+The topology also carries the gradient-reduce plan (`segreduce.py`) that
+the gather's backward (`param_grads.chunked_gather`) sums per-pair
+cotangents with: the full-id-space plan for scenes up to 1.5M Gaussians,
+none (the prefix fallback) above.  `plan_reduce_capacity_from_table` sizes
+its rows from the measured survivors.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from ..ops.aabb import intersect_aabb
 from ..ops.kernels import kernel_scale
 from ..ops.sh import sh_basis_components
 from ..models.gaussians import ActivatedGaussians
+from .param_grads import chunked_gather
+from .segreduce import build_reduce_plan, plan_rows
 from .tile_math import RAY_ROWS
 
 _I32 = torch.int32
@@ -53,7 +61,7 @@ class BinTopology(NamedTuple):
     pair_pos: torch.Tensor    # (capacity,) int32 PRE-SORT pair -> padded slot
     gauss_offsets: torch.Tensor  # (N,) int32 pre-sort pair range start
     gauss_counts: torch.Tensor   # (N,) int32 pre-sort pair range length
-    red: object               # gradient-reduce plan: None until training lands
+    red: object               # segreduce.ReducePlan, or None (prefix fallback)
 
 
 class BinnedScene(NamedTuple):
@@ -246,27 +254,47 @@ def _pair_ellipsoid_cull(tile_x, tile_y, csx, csy, csz, v9, p00, p11,
     return keep
 
 
+#: above this many Gaussians the full-id-space reduce plan's O(N) padding
+#: rows outweigh it: the gather's backward takes the prefix fallback
+REDUCE_PLAN_MAX_N = 1_500_000
+
+
 def bin_topology(act: ActivatedGaussians, w2c, proj, width: int, height: int,
                  cfg: RenderConfig, capacity: int, capacity_padded: int,
                  row_offset: int = 0, row_stride: int = 1,
-                 row_count: int = 0) -> BinTopology:
+                 capacity_reduce: int = 0, capacity_live: int = 0,
+                 row_count: int = 0,
+                 with_reduce_plan: bool = True) -> BinTopology:
     """Build the depth-sorted, chunk-aligned pair-list TOPOLOGY (no params).
 
     With `row_stride > 1` only every stride-th tile row starting at
     `row_offset` is binned; with `row_count > 0` (and stride 1) the
-    contiguous rows [row_offset, row_offset + row_count)."""
+    contiguous rows [row_offset, row_offset + row_count).
+    `capacity_reduce` is the planned row count of the gradient-reduce plan
+    (0: sized for every pre-cull pair); a forward-only caller passes
+    `with_reduce_plan=False` and gets `red = None` without building it."""
     tab = frame_cull_table(act, w2c, proj, width, height, cfg)
     return bin_topology_from_table(tab, proj, width, height, cfg, capacity,
                                    capacity_padded, row_offset, row_stride,
-                                   row_count)
+                                   capacity_reduce, capacity_live, row_count,
+                                   with_reduce_plan)
 
 
 def bin_topology_from_table(tab: FrameCullTable, proj, width: int,
                             height: int, cfg: RenderConfig, capacity: int,
                             capacity_padded: int, row_offset: int = 0,
-                            row_stride: int = 1,
-                            row_count: int = 0) -> BinTopology:
-    """Topology from a precomputed frame table (see FrameCullTable)."""
+                            row_stride: int = 1, capacity_reduce: int = 0,
+                            capacity_live: int = 0,
+                            row_count: int = 0,
+                            with_reduce_plan: bool = True) -> BinTopology:
+    """Topology from a precomputed frame table (see FrameCullTable).
+
+    `capacity_live > 0` asks for the compact reduce plan of the banded path,
+    which is not ported yet."""
+    if capacity_live > 0:
+        raise NotImplementedError(
+            "the compact reduce plan (capacity_live > 0, kernel K4) comes "
+            "with the banded slice: ROADMAP.md section 1 item 8")
     g = cfg.chunk_size
     dev = tab.tx0.device
     n = tab.tx0.shape[0]
@@ -360,6 +388,16 @@ def bin_topology_from_table(tab: FrameCullTable, proj, width: int,
     pair_pos = torch.full((capacity,), capacity_padded, dtype=_I64, device=dev)
     pair_pos[p_sorted] = dest_drop
 
+    # grouped gradient-reduce layout (segreduce.py): pure topology work,
+    # amortized over the bind/refresh cadence.  Scenes above
+    # REDUCE_PLAN_MAX_N take the prefix fallback (red = None).
+    red = None
+    if with_reduce_plan and n <= REDUCE_PLAN_MAX_N:
+        red, red_overflow = build_reduce_plan(
+            pair_g, pair_pos, offsets, counts, n, capacity, capacity_padded,
+            capacity_reduce)
+        overflow = overflow + red_overflow
+
     return BinTopology(
         chunk_tile=chunk_tile.to(_I32),
         chunk_first=chunk_first.to(_I32),
@@ -370,7 +408,7 @@ def bin_topology_from_table(tab: FrameCullTable, proj, width: int,
         pair_pos=pair_pos.to(_I32),
         gauss_offsets=offsets.to(_I32),
         gauss_counts=counts.to(_I32),
-        red=None,
+        red=red,
     )
 
 
@@ -401,17 +439,24 @@ def param_rows(act: ActivatedGaussians, cfg: RenderConfig) -> torch.Tensor:
 
 
 def gather_from_rows(rows64: torch.Tensor, topo: BinTopology,
-                     cfg: RenderConfig) -> torch.Tensor:
-    """(N+1, 64) table + topology -> (num_chunks, G, 64) kernel blocks: the
-    forward of the JAX package's `chunked_gather`."""
-    return rows64[topo.pair_gauss.long()].view(-1, cfg.chunk_size,
-                                               rows64.shape[1])
+                     cfg: RenderConfig, impl: str = "auto") -> torch.Tensor:
+    """(N+1, 64) table + topology -> (num_chunks, G, 64) kernel blocks.
+
+    Differentiable (`param_grads.chunked_gather`): its backward sums the
+    per-pair cotangents per Gaussian with the topology's reduce plan, by
+    the kernel K3 for impl "auto"/"cuda" on the card, by the plain version
+    for "torch" or on the CPU."""
+    return chunked_gather(cfg.chunk_size, rows64, topo.pair_gauss,
+                          topo.pair_pos, topo.gauss_offsets,
+                          topo.gauss_counts, topo.red, impl)
 
 
 def gather_chunks(act: ActivatedGaussians, topo: BinTopology,
-                  cfg: RenderConfig) -> torch.Tensor:
-    """Gather fused per-pair parameter rows into (num_chunks, G, 64) blocks."""
-    return gather_from_rows(param_rows(act, cfg), topo, cfg)
+                  cfg: RenderConfig, impl: str = "auto") -> torch.Tensor:
+    """Gather fused per-pair parameter rows into (num_chunks, G, 64) blocks:
+    the only path gradients take through binning, so a step may reuse a
+    stale topology and still get exactly its forward's gradients."""
+    return gather_from_rows(param_rows(act, cfg), topo, cfg, impl)
 
 
 def binned_scene(chunks: torch.Tensor, topo: BinTopology) -> BinnedScene:
@@ -496,6 +541,22 @@ def plan_capacity_from_table(tab: FrameCullTable, proj, width, height,
     capacity_padded = int(min(padded, capacity + int(nx) * int(ny) * g + g))
     return (_bucket_capacity(capacity, g, bucket_ratio),
             _bucket_capacity(capacity_padded, g, bucket_ratio))
+
+
+def plan_reduce_capacity_from_table(tab: FrameCullTable, proj, width, height,
+                                    cfg: RenderConfig, n_rows: int,
+                                    slack: float = 1.05, band=(0, 1),
+                                    bucket_ratio: float = 1.1) -> int:
+    """Host plan for the live-compacted gradient-reduce layout: the measured
+    survivor pairs x slack, bucketed on a 1.1x grid, plus one padded block
+    per 256-Gaussian group (`segreduce.plan_rows`).  Rows that do not fit
+    at run time count into the topology's overflow (re-plan contract)."""
+    _, per_tile, _, _ = _host_expand_cull(tab, proj, width, height, cfg,
+                                          band)
+    survivors = int(per_tile.sum())
+    budget = _bucket_capacity(int(math.ceil(survivors * slack)),
+                              cfg.chunk_size, ratio=bucket_ratio)
+    return plan_rows(budget, n_rows)
 
 
 def plan_capacity(act: ActivatedGaussians, w2c, proj, width, height,

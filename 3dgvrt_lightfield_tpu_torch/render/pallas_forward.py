@@ -11,8 +11,13 @@ to whole chunks), so tile t owns the contiguous chunk run
 its exclusive prefix sum (`tile_chunk_runs`).  Both versions walk those runs;
 trailing dead chunks are never visited.
 
-Rendering is forward only in this package: the CUDA kernel has no backward
-yet, so every entry point runs under `torch.no_grad()` on both paths.
+The same kernel has a residual variant, `tile_forward_residual`, which also
+writes T_in (C, R), the transmittance at the start of every chunk: the
+residual the backward kernel K2 (`pallas_vjp.py`) reads.  `forward_dispatch`
+is differentiable: when grad is enabled and the chunks or rays require it,
+it routes through `pallas_vjp.render_tiles_ad` (K1 with the residual, then
+K2 in the backward); otherwise it launches K1 without the residual under
+`torch.no_grad()`, which is what serving frames run.
 """
 
 from __future__ import annotations
@@ -58,23 +63,32 @@ def _background_fix(acc, tile_counts):
     return torch.where((tile_counts == 0)[:, None, None], bg[None, :, None], acc)
 
 
-def _composite_plain(chunks, rays, tile_counts,
-                     cfg: RenderConfig) -> torch.Tensor:
+def _composite_plain(chunks, rays, tile_counts, cfg: RenderConfig,
+                     residual: bool = False):
     """Plain version of the kernel: the k-th chunk of every live tile at once,
     in batches of `_TILE_BATCH` tiles; a tile leaves the walk once its run
-    ends or no ray of it is above min_transmittance."""
+    ends or no ray of it is above min_transmittance.  With `residual` it
+    also returns T_in (C, R): T at the start of every chunk of a run (the
+    saturated T after a tile's early-out) and 1 for the dead trailing
+    chunks, as the kernel's residual variant writes it."""
     num_tiles, _, r = rays.shape
     start, count = tile_chunk_runs(tile_counts, chunks.shape[0],
                                    cfg.chunk_size)
     start, count = start.long(), count.long()
     acc = init_acc(r, rays.device, (num_tiles,))
+    t_in = (torch.ones((chunks.shape[0], r), dtype=torch.float32,
+                       device=rays.device) if residual else None)
     for k in range(int(count.max()) if num_tiles else 0):
+        if residual:
+            runs = torch.nonzero(count > k).squeeze(1)
+            t_in[start[runs] + k] = acc[runs, ACC_T]
         alive = (count > k) & (acc[:, ACC_T, :].amax(dim=1)
                                > cfg.min_transmittance)
         for tiles in torch.nonzero(alive).squeeze(1).split(_TILE_BATCH):
             acc[tiles] = chunk_update(rays[tiles], chunks[start[tiles] + k],
                                       acc[tiles], cfg)
-    return _background_fix(acc, tile_counts)
+    acc = _background_fix(acc, tile_counts)
+    return (acc, t_in) if residual else acc
 
 
 def _check_kernel_inputs(chunks, rays, tile_counts, cfg: RenderConfig):
@@ -103,6 +117,37 @@ def _check_kernel_inputs(chunks, rays, tile_counts, cfg: RenderConfig):
         raise ValueError("chunks must be 16-byte aligned")
 
 
+def _launch_tile_forward(chunks, rays, tile_counts, cfg: RenderConfig,
+                         residual: bool):
+    _check_kernel_inputs(chunks, rays, tile_counts, cfg)
+    lib = _build.load("tile_forward")
+    num_chunks = chunks.shape[0]
+    num_tiles, _, r = rays.shape
+    start, count = tile_chunk_runs(tile_counts, num_chunks, cfg.chunk_size)
+    acc = torch.empty((num_tiles, 8, r), dtype=torch.float32,
+                      device=chunks.device)
+    t_in = (torch.empty((num_chunks, r), dtype=torch.float32,
+                        device=chunks.device) if residual else None)
+    with torch.cuda.device(chunks.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.gvrt_tile_forward(
+            chunks.data_ptr(), rays.data_ptr(), start.data_ptr(),
+            count.data_ptr(), acc.data_ptr(),
+            t_in.data_ptr() if residual else None, num_tiles, num_chunks, r,
+            cfg.chunk_size, cfg.kernel_degree, cfg.max_alpha, cfg.alpha_min,
+            cfg.hit_min_response, cfg.min_transmittance,
+            int(cfg.transmittance_prod), stream)
+    if err != 0:
+        raise RuntimeError(f"tile_forward kernel launch failed: CUDA error "
+                           f"{err}")
+    return acc, t_in
+
+
+def _check_device(fn: str, chunks):
+    if chunks.device.type != "cuda":
+        raise ValueError(f"{fn} runs on CUDA or the CPU, not {chunks.device}")
+
+
 def tile_forward(chunks: torch.Tensor, rays: torch.Tensor,
                  tile_counts: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
     """Fused forward composite: (num_tiles, 8, R) accumulators.
@@ -114,33 +159,30 @@ def tile_forward(chunks: torch.Tensor, rays: torch.Tensor,
     """
     if chunks.device.type == "cpu":
         return _composite_plain(chunks, rays, tile_counts, cfg)
-    if chunks.device.type != "cuda":
-        raise ValueError(f"tile_forward runs on CUDA or the CPU, not "
-                         f"{chunks.device}")
-    _check_kernel_inputs(chunks, rays, tile_counts, cfg)
-    lib = _build.load("tile_forward")
-    num_tiles, _, r = rays.shape
-    start, count = tile_chunk_runs(tile_counts, chunks.shape[0],
-                                   cfg.chunk_size)
-    acc = torch.empty((num_tiles, 8, r), dtype=torch.float32,
-                      device=chunks.device)
-    with torch.cuda.device(chunks.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.gvrt_tile_forward(
-            chunks.data_ptr(), rays.data_ptr(), start.data_ptr(),
-            count.data_ptr(), acc.data_ptr(), num_tiles, r, cfg.chunk_size,
-            cfg.kernel_degree, cfg.max_alpha, cfg.alpha_min,
-            cfg.hit_min_response, cfg.min_transmittance,
-            int(cfg.transmittance_prod), stream)
-    if err != 0:
-        raise RuntimeError(f"tile_forward kernel launch failed: CUDA error "
-                           f"{err}")
+    _check_device("tile_forward", chunks)
+    acc, _ = _launch_tile_forward(chunks, rays, tile_counts, cfg, False)
     tile_forward.launches += 1
     return acc
 
 
+def tile_forward_residual(chunks: torch.Tensor, rays: torch.Tensor,
+                          tile_counts: torch.Tensor, cfg: RenderConfig):
+    """`tile_forward` that also returns T_in (C, R), the transmittance at the
+    start of every chunk (the backward's residual).  On CUDA tensors it
+    launches the residual variant of `csrc/tile_forward.cu` and adds one to
+    `tile_forward_residual.launches`; on CPU tensors it runs the plain
+    version."""
+    if chunks.device.type == "cpu":
+        return _composite_plain(chunks, rays, tile_counts, cfg, residual=True)
+    _check_device("tile_forward_residual", chunks)
+    out = _launch_tile_forward(chunks, rays, tile_counts, cfg, True)
+    tile_forward_residual.launches += 1
+    return out
+
+
 #: kernel launches since the last reset (plain-version calls do not count)
 tile_forward.launches = 0
+tile_forward_residual.launches = 0
 
 
 def forward_tiles(binned: BinnedScene, rays_tiled: torch.Tensor,
@@ -160,10 +202,24 @@ def forward_tiles_reference(binned: BinnedScene, rays_tiled: torch.Tensor,
 
 def forward_dispatch(binned: BinnedScene, rays_tiled: torch.Tensor,
                      cfg: RenderConfig, impl: str) -> torch.Tensor:
-    """One impl -> kernel dispatch for every render path ("cuda" | "torch")."""
+    """One impl -> kernel dispatch for every render path ("cuda" | "torch").
+
+    Differentiable: with grad enabled and chunks or rays requiring grad it
+    goes through `pallas_vjp.render_tiles_ad` (K1 with its residual and K2,
+    or their plain versions for "torch"); otherwise it runs the forward
+    alone under `torch.no_grad()`, K1 without the residual for "cuda"."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}")
+    if impl == "cuda" and rays_tiled.device.type != "cuda":
+        raise ValueError(f"impl='cuda' needs CUDA tensors, got "
+                         f"{rays_tiled.device}")
+    if torch.is_grad_enabled() and (binned.chunks.requires_grad
+                                    or rays_tiled.requires_grad):
+        from .pallas_vjp import render_tiles_ad
+        acc = render_tiles_ad(binned.chunks, rays_tiled, binned.tile_counts,
+                              cfg, impl)
+        return _background_fix(acc, binned.tile_counts)
     with torch.no_grad():
         if impl == "cuda":
             return forward_tiles(binned, rays_tiled, cfg)
-        if impl == "torch":
-            return forward_tiles_reference(binned, rays_tiled, cfg)
-    raise ValueError(f"unknown impl {impl!r}")
+        return forward_tiles_reference(binned, rays_tiled, cfg)

@@ -1,12 +1,16 @@
 """High-level tiled renderer: binning + fused kernel + image assembly.
 
-The serving path: `TiledRenderer.plan` measures pair counts to size the
-static capacities, `render` bins the scene for the camera, gathers the
-per-pair parameter rows, runs the tile kernel and untiles the image.
-`bind` holds one camera's topology so `render_bound` skips the binning pass.
+`TiledRenderer.plan` measures pair counts to size the static capacities
+(pairs, padded slots, gradient-reduce rows), `render` bins the scene for the
+camera, gathers the per-pair parameter rows, runs the tile kernel and
+untiles the image.  `bind` holds one camera's topology so `render_bound`
+skips the binning pass.
 
-Everything here runs on the card unless the caller passes ``device="cpu"``,
-and under `torch.no_grad()`: the port renders forward only.
+Everything here runs on the card unless the caller passes ``device="cpu"``.
+`render` and `render_bound` are differentiable when the caller has grad
+enabled (the topology never is: `plan`, `bind` and binning run under
+`torch.no_grad()`); serving callers wrap them in `torch.no_grad()`, which
+keeps the forward kernel K1 without its training residual.
 """
 
 from __future__ import annotations
@@ -19,9 +23,11 @@ import torch
 from ..config import DEFAULT_CONFIG, RenderConfig, resolve_device
 from ..models.gaussians import GaussianModel
 from .binning import (bin_topology, binned_scene, frame_cull_table,
-                      gather_chunks, gather_from_rows, param_rows,
-                      plan_capacity_from_table, tile_rays, untile)
+                      gather_chunks, gather_from_rows,
+                      plan_capacity_from_table,
+                      plan_reduce_capacity_from_table, tile_rays, untile)
 from .pallas_forward import forward_dispatch, resolve_impl
+from .rows_vjp import rows64_from_model
 from .tile_math import ACC_DEPTH, ACC_HITS, ACC_T
 
 
@@ -63,6 +69,9 @@ class TiledRenderer:
         self.device = resolve_device(device)
         self.impl = resolve_impl(impl, self.device)
         self.capacity = capacity
+        #: static row count of the gradient-reduce layout (0: derived from
+        #: the pair capacity; set by plan())
+        self.capacity_reduce = 0
         self._ray_cache = {}
         self._bound = None  # (topology, rays) from bind()
 
@@ -79,11 +88,12 @@ class TiledRenderer:
         `slack` multiplies the measured counts (headroom for camera drift);
         overflow triggers an eager re-plan either way.  `bucket_ratio`
         overrides the capacity grid (1.0: exact chunk-aligned capacities,
-        for a fixed scene and camera)."""
+        for a fixed scene and camera).  Also sets `capacity_reduce` from the
+        measured survivor pairs."""
         self._check_model(model)
         act = model.activate()
         ratios = {} if bucket_ratio is None else {"bucket_ratio": bucket_ratio}
-        cap = cap_pad = 0
+        cap = cap_pad = cap_r = 0
         for cam in cameras:
             w2c, proj = _camera_mats(cam)
             tab = frame_cull_table(act, w2c, proj, self.width, self.height,
@@ -91,17 +101,30 @@ class TiledRenderer:
             c, cp = plan_capacity_from_table(tab, proj, self.width,
                                              self.height, self.cfg,
                                              slack=slack, **ratios)
-            cap, cap_pad = max(cap, c), max(cap_pad, cp)
+            cr = plan_reduce_capacity_from_table(
+                tab, proj, self.width, self.height, self.cfg,
+                model.num_gaussians + 1, slack=max(slack, 1.05), **ratios)
+            cap, cap_pad, cap_r = max(cap, c), max(cap_pad, cp), max(cap_r, cr)
         self.capacity = (cap, cap_pad)
+        self.capacity_reduce = cap_r
         return self.capacity
 
     def _replan_merged(self, model, camera):
         """Re-plan for `camera`, max-merged with the held capacities so a
         single-camera re-plan never shrinks a multi-camera plan."""
-        cap0 = self.capacity
+        cap0, cap_r0 = self.capacity, self.capacity_reduce
         self.plan(model, [camera])
         self.capacity = (max(cap0[0], self.capacity[0]),
                          max(cap0[1], self.capacity[1]))
+        self.capacity_reduce = max(cap_r0, self.capacity_reduce)
+
+    @torch.no_grad()
+    def _topology(self, act, camera, with_reduce_plan=True):
+        w2c, proj = _camera_mats(camera)
+        return bin_topology(act, w2c, proj, self.width, self.height,
+                            self.cfg, *self.capacity,
+                            capacity_reduce=self.capacity_reduce,
+                            with_reduce_plan=with_reduce_plan)
 
     def _rays(self, camera):
         # value-based key: id() of a collected camera can be reused and would
@@ -114,20 +137,19 @@ class TiledRenderer:
         return self._ray_cache[key]
 
     def _render_once(self, act, camera):
-        w2c, proj = _camera_mats(camera)
-        topo = bin_topology(act, w2c, proj, self.width, self.height,
-                            self.cfg, *self.capacity)
-        acc = forward_dispatch(binned_scene(gather_chunks(act, topo, self.cfg),
-                                            topo),
-                               self._rays(camera), self.cfg, self.impl)
+        # a frame rendered without grad needs no gradient-reduce plan
+        topo = self._topology(act, camera, torch.is_grad_enabled())
+        chunks = gather_chunks(act, topo, self.cfg, self.impl)
+        acc = forward_dispatch(binned_scene(chunks, topo), self._rays(camera),
+                               self.cfg, self.impl)
         return _acc_outputs(acc, self.width, self.height, self.cfg, topo)
 
-    @torch.no_grad()
     def render(self, model: GaussianModel, camera):
         """Render one frame -> dict of rgb (H, W, 3), depth, transmittance,
         hit_count (H, W), num_pairs and overflow.  Capacity overflow drops
         pairs (never corrupts): it triggers one re-plan and re-render, at the
-        cost of one host read of the overflow count per frame."""
+        cost of one host read of the overflow count per frame.
+        Differentiable w.r.t. the model's parameters when grad is enabled."""
         self._check_model(model)
         if self.capacity is None:
             self.plan(model, [camera])
@@ -145,28 +167,26 @@ class TiledRenderer:
         self._check_model(model)
         if self.capacity is None:
             self.plan(model, [camera])
-        w2c, proj = _camera_mats(camera)
         act = model.activate()
-        topo = bin_topology(act, w2c, proj, self.width, self.height,
-                            self.cfg, *self.capacity)
+        topo = self._topology(act, camera)
         if int(topo.overflow) > 0:
             self._replan_merged(model, camera)
-            topo = bin_topology(act, w2c, proj, self.width, self.height,
-                                self.cfg, *self.capacity)
+            topo = self._topology(act, camera)
         self._bound = (topo, self._rays(camera))
         return topo
 
-    @torch.no_grad()
     def render_bound(self, model: GaussianModel):
         """Render against the topology held by `bind`: one parameter gather
         plus the tile kernel.  Exact for the bound model; culling and depth
-        order go stale if its parameters move (re-`bind` then)."""
+        order go stale if its parameters move (re-`bind` then), while
+        gradients stay exact for this forward.  The parameter table comes
+        from `rows64_from_model`, whose backward is hand-derived."""
         if self._bound is None:
             raise RuntimeError("call bind(model, camera) first")
         self._check_model(model)
         topo, rays = self._bound
-        chunks = gather_from_rows(param_rows(model.activate(), self.cfg),
-                                  topo, self.cfg)
+        chunks = gather_from_rows(rows64_from_model(model, self.cfg), topo,
+                                  self.cfg, self.impl)
         acc = forward_dispatch(binned_scene(chunks, topo), rays, self.cfg,
                                self.impl)
         return _acc_outputs(acc, self.width, self.height, self.cfg, topo)

@@ -1,4 +1,5 @@
-"""Utilities: benchmarking."""
+"""Utilities: benchmarking and image-quality metrics."""
 
-from . import benchmark
+from . import benchmark, metrics
 from .benchmark import BenchmarkResult, run_benchmark, save_results
+from .metrics import psnr, ssim

@@ -39,3 +39,14 @@ def torch_cfg(cfg) -> "gt.RenderConfig":
 
 def camera(res=32, fov=60.0, height=None):
     return g3.Camera.from_fovy(res, height or res, fov, np.eye(4))
+
+
+def assert_grad_close(got, want, name=""):
+    """The gradient tolerance of tests/test_backward.py:53-58, per leaf:
+    atol = max(2e-5 * scale, 1e-7) with `scale` the leaf's max |grad|, and
+    rtol = 2e-4 (float summation orders differ between the packages)."""
+    want = np.asarray(want)
+    scale = max(float(np.abs(want).max()), 1e-8)
+    np.testing.assert_allclose(np.asarray(got), want,
+                               atol=max(2e-5 * scale, 1e-7), rtol=2e-4,
+                               err_msg=name)

@@ -1,16 +1,24 @@
-"""PyTorch port on the card: the CUDA tile kernel against its plain version.
+"""PyTorch port on the card: the CUDA kernels against their plain versions.
 
-Needs an NVIDIA card (the kernel has no CPU mode), so every test is marked
+Needs an NVIDIA card (the kernels have no CPU mode), so every test is marked
 `cuda` and skips without one.  It imports neither JAX nor the JAX package,
 so it also runs where those are not installed:
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest -p no:cacheprovider
 
 Kernel and plain version see the same binned inputs.  Bounds (the stated
-kernel tolerance): rgb and T within 1e-5, depth within 1e-4 and hit counts
-equal, each on at least 99.99% of rays, and max abs <= 5e-3: a sequential
-product against a cumprod can flip a borderline `T > min_transmittance`
-gate on a rare pair.
+kernel tolerances):
+  * K1: rgb and T within 1e-5, depth within 1e-4 and hit counts equal, each
+    on at least 99.99% of rays, and max abs <= 5e-3: a sequential product
+    against a cumprod can flip a borderline `T > min_transmittance` gate on
+    a rare pair.  Its residual T_in: within 1e-5 on 99.99% of entries.
+  * K2: relative L2 error <= 1e-4 per column group (M, b, density, SH) and
+    for the ray cotangents (the sums over rays run in another order);
+    saturated and dead chunks exactly zero; two runs bit-identical.
+  * K3: relative L2 error <= 1e-5 (another summation order); bit-identical
+    across runs.
+  * The whole training step, kernels against plain versions: relative L2
+    <= 1e-4 per parameter group.
 """
 
 import os
@@ -25,6 +33,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import gvrt_tpu_torch as gt  # noqa: E402
 from gvrt_tpu_torch.render import binning  # noqa: E402
 from gvrt_tpu_torch.render import pallas_forward as pf  # noqa: E402
+from gvrt_tpu_torch.render import pallas_vjp as pv  # noqa: E402
+from gvrt_tpu_torch.render import segreduce as sr  # noqa: E402
 from gvrt_tpu_torch.render.tiled import _camera_mats  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -124,8 +134,143 @@ def test_renderer_defaults_to_the_card_and_the_kernel(cuda):
         model.means[:, 2] -= 3.0
     r = gt.render.TiledRenderer(64, 64)
     assert r.device.type == "cuda" and r.impl == "cuda"
-    before = pf.tile_forward.launches
-    out = r.render(model, gt.Camera.from_fovy(64, 64, 60.0, np.eye(4)))
+    cam = gt.Camera.from_fovy(64, 64, 60.0, np.eye(4))
+    before = (pf.tile_forward.launches, pf.tile_forward_residual.launches)
+    with torch.no_grad():  # serving: K1 without the training residual
+        out = r.render(model, cam)
     torch.cuda.synchronize()
-    assert pf.tile_forward.launches == before + 1
+    assert (pf.tile_forward.launches,
+            pf.tile_forward_residual.launches) == (before[0] + 1, before[1])
     assert out["rgb"].is_cuda and bool(out["rgb"].isfinite().all())
+    # with grad: the residual variant, and K2 + K3 in the backward
+    before = (pf.tile_forward.launches, pf.tile_forward_residual.launches,
+              pv.tile_backward.launches, sr.segment_reduce.launches)
+    r.render(model, cam)["rgb"].mean().backward()
+    torch.cuda.synchronize()
+    assert (pf.tile_forward.launches, pf.tile_forward_residual.launches,
+            pv.tile_backward.launches, sr.segment_reduce.launches) == (
+        before[0], before[1] + 1, before[2] + 1, before[3] + 1)
+    assert float(model.means.grad.abs().max()) > 0
+
+
+def _rel_l2(got, want):
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+#: bar_chunk column groups of the backward
+COL_GROUPS = {"M": slice(0, 9), "b": slice(9, 12), "density": slice(12, 13),
+              "sh": slice(16, 64)}
+
+
+def _bar_acc(scene_rays, seed):
+    g = torch.Generator(device=scene_rays.device).manual_seed(seed)
+    bar = torch.randn((scene_rays.shape[0], 8, scene_rays.shape[2]),
+                      generator=g, device=scene_rays.device)
+    bar[:, 5:] = 0.0  # hit counts carry no gradient
+    return bar
+
+
+@pytest.mark.parametrize("name,ray_grads", [("default", True),
+                                            ("logspace", False),
+                                            ("t8_g128", True),
+                                            ("degree_8", False)])
+def test_residual_and_backward_kernels_match_plain(cuda, name, ray_grads):
+    cfg = CONFIGS[name].replace(ray_gradients=ray_grads)
+    scene, rays = _binned(cuda, cfg, pad_factor=2)
+    # poison the caching allocator: the kernels' outputs come from
+    # torch.empty and must not show what was there before
+    torch.full((scene.chunks.numel() * 2,), float("nan"), device=cuda)
+    before = (pf.tile_forward_residual.launches, pv.tile_backward.launches)
+    acc, t_in = pf.tile_forward_residual(scene.chunks, rays,
+                                         scene.tile_counts, cfg)
+    acc_p, t_in_p = pv._forward_residual_plain(scene.chunks, rays,
+                                               scene.tile_counts, cfg)
+    torch.cuda.synchronize()
+    assert bool(t_in.isfinite().all())
+    assert float(((t_in - t_in_p).abs() <= 1e-5).float().mean()) >= 0.9999
+    bar_acc = _bar_acc(rays, 7)
+    torch.full((scene.chunks.numel() * 2,), float("nan"), device=cuda)
+    got = pv.tile_backward(scene.chunks, rays, scene.tile_counts, t_in,
+                           bar_acc, cfg)
+    again = pv.tile_backward(scene.chunks, rays, scene.tile_counts, t_in,
+                             bar_acc, cfg)
+    want = pv._backward_plain(scene.chunks, rays, scene.tile_counts, t_in,
+                              bar_acc, cfg)
+    torch.cuda.synchronize()
+    assert (pf.tile_forward_residual.launches, pv.tile_backward.launches) == (
+        before[0] + 1, before[1] + 2)
+    assert bool(got[0].isfinite().all())
+    assert torch.equal(got[0], again[0])
+    for group, cols in COL_GROUPS.items():
+        assert _rel_l2(got[0][..., cols], want[0][..., cols]) <= 1e-4, group
+    assert bool((got[0][..., 13:16] == 0).all())
+    dead = scene.chunk_tile == rays.shape[0]
+    assert int(dead.sum()) > 0 and bool((got[0][dead] == 0).all())
+    if ray_grads:
+        assert torch.equal(got[1], again[1])
+        assert _rel_l2(got[1], want[1]) <= 1e-4
+    else:
+        assert got[1] is None and want[1] is None
+
+
+def test_backward_kernel_zeroes_saturated_chunks(cuda):
+    scene, rays = _binned(cuda, BASE, n=1500, opacity_shift=6.0,
+                          scale_range=(-2.2, -1.6), spread=0.3, pad_factor=3)
+    acc, t_in = pf.tile_forward_residual(scene.chunks, rays,
+                                         scene.tile_counts, BASE)
+    got, _ = pv.tile_backward(scene.chunks, rays, scene.tile_counts, t_in,
+                              _bar_acc(rays, 8), BASE)
+    start, count = pf.tile_chunk_runs(scene.tile_counts,
+                                      scene.chunks.shape[0], BASE.chunk_size)
+    in_run = torch.zeros(scene.chunks.shape[0], dtype=torch.bool,
+                         device=cuda)
+    for t in torch.nonzero(count).squeeze(1).tolist():
+        in_run[int(start[t]):int(start[t]) + int(count[t])] = True
+    saturated = in_run & (t_in.amax(dim=1) <= BASE.min_transmittance)
+    assert int(saturated.sum()) > 0
+    assert bool((got[saturated] == 0).all())
+    assert bool(got.isfinite().all())
+
+
+def test_segment_reduce_kernel_matches_plain(cuda):
+    cfg = BASE
+    scene, rays = _binned(cuda, cfg, n=3000)
+    assert scene.red is not None
+    g = torch.Generator(device=cuda).manual_seed(9)
+    bar_flat = torch.randn((scene.chunks.shape[0] * cfg.chunk_size, 64),
+                           generator=g, device=cuda)
+    n_groups = -(-3001 // sr.GROUP)
+    before = sr.segment_reduce.launches
+    got = sr.segment_reduce(bar_flat, scene.red, n_groups)
+    again = sr.segment_reduce(bar_flat, scene.red, n_groups)
+    want = sr.segment_reduce_plain(bar_flat, scene.red, n_groups)
+    torch.cuda.synchronize()
+    assert sr.segment_reduce.launches == before + 2
+    assert torch.equal(got, again)
+    assert _rel_l2(got, want) <= 1e-5
+    # Gaussians without a live pair get exact zeros
+    assert bool((got[want.abs().sum(1) == 0] == 0).all())
+
+
+@pytest.mark.parametrize("name", ["default", "logspace"])
+def test_training_step_gradients_match_plain_path(cuda, name):
+    cfg = CONFIGS[name]
+    g = torch.Generator(device=cuda).manual_seed(11)
+    model = gt.random_gaussians(g, 2000, extent=0.8, device=cuda)
+    with torch.no_grad():
+        model.means[:, 2] -= 3.0
+    cam = gt.Camera.from_fovy(96, 96, 60.0, np.eye(4))
+    grads = {}
+    for impl in ("cuda", "torch"):
+        r = gt.render.TiledRenderer(96, 96, cfg, impl=impl, device=cuda)
+        r.plan(model, [cam])
+        r.bind(model, cam)
+        model.zero_grad(set_to_none=True)
+        out = r.render_bound(model)
+        loss = ((out["rgb"] - 0.3) ** 2).mean() + 1e-2 * out["depth"].mean()
+        loss.backward()
+        grads[impl] = {k: getattr(model, k).grad.clone()
+                       for k in gt.models.gaussians.LEAVES}
+    for k, want in grads["torch"].items():
+        assert float(want.abs().max()) > 0, k
+        assert _rel_l2(grads["cuda"][k], want) <= 1e-4, k

@@ -28,7 +28,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _np(out):
-    return {k: v.numpy() for k, v in out.items()}
+    return {k: v.detach().numpy() for k, v in out.items()}
 
 
 @pytest.mark.parametrize("cfg", [g3.DEFAULT_CONFIG, CFG_T8],
@@ -134,7 +134,7 @@ def test_goldens_r04():
     r.plan(model, cams)
     assert sorted(c.name for c in cams) == sorted(views)
     for cam in cams:
-        rgb = r.render(model, cam)["rgb"].numpy()
+        rgb = r.render(model, cam)["rgb"].detach().numpy()
         golden = np.load(os.path.join(gdir, f"{cam.name}.npy"))
         np.testing.assert_allclose(rgb, golden, atol=4e-3, err_msg=cam.name)
 
@@ -183,6 +183,12 @@ def test_missing_cuda_raises_unless_cpu_is_asked_for(monkeypatch):
 
 def test_import_loads_neither_jax_nor_the_jax_package():
     code = ("import sys, gvrt_tpu_torch\n"
+            "import gvrt_tpu_torch.render.pallas_vjp, "
+            "gvrt_tpu_torch.render.segreduce, "
+            "gvrt_tpu_torch.render.param_grads, "
+            "gvrt_tpu_torch.render.rows_vjp, gvrt_tpu_torch.train.trainer, "
+            "gvrt_tpu_torch.train.checkpoint, gvrt_tpu_torch.parallel, "
+            "gvrt_tpu_torch.utils.metrics, gvrt_tpu_torch.app\n"
             "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
             " or k in ('3dgvrt_lightfield_tpu', 'gvrt_tpu')"
             " or k.startswith(('3dgvrt_lightfield_tpu.', 'gvrt_tpu.'))]\n"
