@@ -42,6 +42,10 @@ SIGNATURES = {
         "gvrt_segment_reduce": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
                                 ctypes.c_int),
     },
+    "segment_reduce_compact": {
+        "gvrt_segment_reduce_compact": ([_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                         _P], ctypes.c_int),
+    },
 }
 
 _lock = threading.Lock()

@@ -7,7 +7,9 @@ Subcommands (the JAX package's CLI, as far as this port reaches):
   info       device / scene info
   train      Adam fine-tune on one card (self-distillation or --images-dir)
 
-Everything runs on the card unless ``--device cpu`` is given.
+`--bands N` renders and trains in N sequential tile-row bands (bounded
+memory for garden-scale scenes, `render/banded.py`).  Everything runs on the
+card unless ``--device cpu`` is given.
 
 Run as:  python -m 3dgvrt_lightfield_tpu_torch <subcommand> [...]
 """
@@ -17,6 +19,7 @@ from __future__ import annotations
 import argparse
 import math
 import os
+import sys
 
 import numpy as np
 import torch
@@ -72,6 +75,17 @@ def _common(p):
                    help="torch device (default cuda; pass cpu for the CPU)")
     p.add_argument("--filter-abnormal", action="store_true",
                    help="drop abnormal particles (enclosing-pass filter)")
+    p.add_argument("--bands", type=int, default=0,
+                   help="render in N sequential tile-row bands (bounded "
+                        "memory for garden-scale scenes; render/banded.py)")
+    p.add_argument("--span-bands", action="store_true",
+                   help="contiguous tile-row bands + live-id windows "
+                        "(training only; pairs best with a y-sorted model, "
+                        "GaussianModel.sorted_for_camera)")
+    p.add_argument("--balance-bands", action="store_true",
+                   help="pair-balanced span bands: rows at the survivor-"
+                        "pair quantiles, per-band capacities (implies "
+                        "--span-bands; training only)")
 
 
 def _dump_poses(cams, path):
@@ -96,15 +110,60 @@ def _save_hit_counts(hit_count, path):
             f.write(" ".join(str(int(v)) for v in row) + "\n")
 
 
+class _BandedFrames:
+    """Per-frame banded rendering with a shared (max-merged) capacity plan
+    and the overflow -> re-plan-once contract of TiledRenderer.render;
+    shared by `render` and `benchmark`.  Frames render under no_grad."""
+
+    def __init__(self, model, cams, requested_bands, impl):
+        from .config import DEFAULT_CONFIG
+        from .render.banded import plan_capacity_banded, resolve_bands_common
+        self.cfg, self.impl = DEFAULT_CONFIG, impl
+        # resolve from the cameras' heights: pose files may carry a height
+        # other than --height
+        self.n_bands = resolve_bands_common([c.height for c in cams],
+                                            requested_bands, self.cfg)
+        # plan over up to 4 representative cameras, like the unbanded path
+        self.capacity = (0, 0)
+        for c in cams[: min(4, len(cams))]:
+            self._merge(plan_capacity_banded(model, c, self.n_bands,
+                                             self.cfg))
+
+    def _merge(self, cap):
+        self.capacity = (max(self.capacity[0], cap[0]),
+                         max(self.capacity[1], cap[1]))
+
+    @torch.no_grad()
+    def render(self, model, cam):
+        from .render.banded import plan_capacity_banded, render_image_banded
+        out = render_image_banded(model, cam, self.n_bands, self.cfg,
+                                  capacity=self.capacity, impl=self.impl,
+                                  device=model.device)
+        if int(out["overflow"]) > 0:
+            # capacity overflow drops pairs: re-plan for this camera
+            # (max-merged) and re-render once
+            self._merge(plan_capacity_banded(model, cam, self.n_bands,
+                                             self.cfg))
+            print(f"overflow -> re-planned capacity {self.capacity}",
+                  file=sys.stderr)
+            out = render_image_banded(model, cam, self.n_bands, self.cfg,
+                                      capacity=self.capacity, impl=self.impl,
+                                      device=model.device)
+        return out
+
+
 def cmd_render(args):
     from .config import DEFAULT_CONFIG
     from .io.image import save_png
     from .render.tiled import TiledRenderer
     model = _load_model(args)
     cams = _cameras(args, model)[: args.frames]
-    r = TiledRenderer(args.width, args.height, DEFAULT_CONFIG,
-                      impl=args.impl, device=args.device)
-    r.plan(model, cams[: min(4, len(cams))])
+    if args.bands:
+        r = _BandedFrames(model, cams, args.bands, args.impl)
+    else:
+        r = TiledRenderer(args.width, args.height, DEFAULT_CONFIG,
+                          impl=args.impl, device=args.device)
+        r.plan(model, cams[: min(4, len(cams))])
     os.makedirs(args.out, exist_ok=True)
     if args.dump_poses:
         _dump_poses(cams, os.path.join(args.out, "camera_poses.json"))
@@ -131,20 +190,24 @@ def cmd_benchmark(args):
     from .utils.benchmark import run_benchmark, save_results
     model = _load_model(args)
     cam = _cameras(args, model)[0]
-    r = TiledRenderer(args.width, args.height, DEFAULT_CONFIG,
-                      impl=args.impl, device=args.device)
-    r.plan(model, [cam])
+    if args.bands:
+        # the banded bounded-memory frame: what --bands is for at scale
+        r = _BandedFrames(model, [cam], args.bands, args.impl)
+    else:
+        r = TiledRenderer(args.width, args.height, DEFAULT_CONFIG,
+                          impl=args.impl, device=args.device)
+        r.plan(model, [cam])
 
     def frame():
         with torch.no_grad():
             r.render(model, cam)
-        if r.device.type == "cuda":
-            torch.cuda.synchronize(r.device)
+        if model.device.type == "cuda":
+            torch.cuda.synchronize(model.device)
 
     res = run_benchmark(frame, warmup=args.benchwarmup,
                         duration=args.benchruntime,
                         output_frames=args.benchframes,
-                        device=_device_name(r.device))
+                        device=_device_name(model.device))
     save_results(res, args.benchfilename, frame_times=args.benchframetimes)
     rays = args.width * args.height
     print(f"rays/s : {rays * res.fps / 1e6:.2f}M")
@@ -166,20 +229,43 @@ def cmd_info(args):
 
 #: train options of the JAX CLI whose paths are not ported yet
 _NOT_PORTED = {
-    "bands": "banded training, ROADMAP.md section 1 item 8",
-    "span_bands": "banded training, ROADMAP.md section 1 item 8",
-    "balance_bands": "banded training, ROADMAP.md section 1 item 8",
-    "sort_scene": "sorted_for_camera, ROADMAP.md section 1 item 8",
     "optimize_poses": "pose refinement, ROADMAP.md section 1 item 9",
     "perturb_poses": "pose refinement, ROADMAP.md section 1 item 9",
     "devices": "the sharded trainer, ROADMAP.md section 1 item 11",
 }
 
 
+class _BandedEval:
+    """Held-topology banded eval renderer with a bind cache: topologies are
+    rebound when the camera changes, after `refresh_every` renders, or when
+    the held window overflows (the trainer's own staleness contract)."""
+
+    def __init__(self, renderer, refresh_every: int):
+        self._r, self._refresh = renderer, refresh_every
+        self._key, self._age = None, 0
+
+    @torch.no_grad()
+    def render(self, model, cam):
+        key = cam.content_key()
+        if self._key != key or self._age >= self._refresh:
+            self._r.bind(model, cam)
+            self._key, self._age = key, 0
+        self._age += 1
+        out = self._r.render_bound(model)
+        if int(out["overflow"]) > 0:
+            # capacity outgrown by drift: bind re-plans eagerly
+            self._r.bind(model, cam)
+            self._age = 1
+            out = self._r.render_bound(model)
+        return out
+
+
 def cmd_train(args):
     from .config import DEFAULT_CONFIG
     from .io.image import load_png
     from .parallel import camera_batch
+    from .render.banded import (BandedRenderer, render_image_banded,
+                                resolve_bands_common)
     from .render.tiled import TiledRenderer
     from .train import TrainConfig, Trainer
     from .utils.metrics import psnr
@@ -187,10 +273,9 @@ def cmd_train(args):
         if getattr(args, opt):
             raise SystemExit(f"train --{opt.replace('_', '-')}: not ported "
                              f"yet ({where})")
-    if args.optimizer != "adam" or args.banded_remat != "full":
-        raise SystemExit(f"train --optimizer {args.optimizer} / "
-                         f"--banded-remat {args.banded_remat}: not ported yet "
-                         f"(ROADMAP.md section 1 items 8-9)")
+    if args.optimizer != "adam":
+        raise SystemExit(f"train --optimizer {args.optimizer}: not ported "
+                         f"yet (ROADMAP.md section 1 item 9)")
     model = _load_model(args)
     cams = _cameras(args, model)
     if args.images_dir:
@@ -201,6 +286,14 @@ def cmd_train(args):
                 targets.append(load_png(path).astype(np.float32) / 255.0)
                 kept.append(cam)
         cams = kept
+    elif args.bands:
+        # self-distillation at garden scale: banded renders
+        nb = resolve_bands_common([c.height for c in cams], args.bands,
+                                  DEFAULT_CONFIG)
+        with torch.no_grad():
+            targets = [render_image_banded(
+                model, c, nb, DEFAULT_CONFIG, impl=args.impl,
+                device=model.device)["rgb"].cpu().numpy() for c in cams]
     else:
         # self-distillation: fit to the model's own renders
         r = TiledRenderer(args.width, args.height, DEFAULT_CONFIG,
@@ -208,12 +301,40 @@ def cmd_train(args):
         r.plan(model, cams[:4])
         with torch.no_grad():
             targets = [r.render(model, c)["rgb"].cpu().numpy() for c in cams]
-    planner = TiledRenderer(args.width, args.height, DEFAULT_CONFIG,
-                            impl=args.impl, device=args.device)
-    capacity = planner.plan(model, cams[: min(8, len(cams))])
-    tc = TrainConfig(total_steps=args.steps, optimizer=args.optimizer)
-    trainer = Trainer(args.width, args.height, DEFAULT_CONFIG, tc, capacity,
-                      impl=args.impl, device=args.device)
+    span = args.span_bands or args.balance_bands
+    tc = TrainConfig(total_steps=args.steps, optimizer=args.optimizer,
+                     banded_remat=args.banded_remat, span_bands=span,
+                     balance_bands=args.balance_bands)
+    if args.sort_scene:
+        # scene prep for span banding's live-id windows: a one-time y-sort
+        # against the first camera
+        model = model.sorted_for_camera(cams[0], DEFAULT_CONFIG)
+    if args.bands:
+        # the garden-scale path: banded training, one camera per step, held
+        # per-band topologies.  Dims come from the cameras (pose files may
+        # carry their own resolution)
+        dims = {(c.width, c.height) for c in cams}
+        if len(dims) != 1:
+            raise SystemExit(f"train --bands needs one camera resolution, "
+                             f"got {sorted(dims)}")
+        (args.width, args.height), = dims
+        if args.balance_bands:
+            # balanced bands have variable row counts: any n <= tile rows
+            n_bands = max(1, min(args.bands,
+                                 args.height // DEFAULT_CONFIG.tile_size))
+        else:
+            n_bands = resolve_bands_common([c.height for c in cams],
+                                           args.bands, DEFAULT_CONFIG)
+        trainer = Trainer(args.width, args.height, DEFAULT_CONFIG, tc,
+                          impl=args.impl, n_bands=n_bands,
+                          device=model.device)
+        capacity = None
+    else:
+        planner = TiledRenderer(args.width, args.height, DEFAULT_CONFIG,
+                                impl=args.impl, device=args.device)
+        capacity = planner.plan(model, cams[: min(8, len(cams))])
+        trainer = Trainer(args.width, args.height, DEFAULT_CONFIG, tc,
+                          capacity, impl=args.impl, device=args.device)
     state = trainer.init(model)
     start_step = 0
     if args.ckpt_dir:
@@ -225,16 +346,30 @@ def cmd_train(args):
     dev = trainer.device
     rng = np.random.default_rng(0)
     # held-out PSNR on cams[0], which the training pool EXCLUDES
-    eval_r = TiledRenderer(args.width, args.height, DEFAULT_CONFIG,
-                           capacity=capacity, impl=args.impl, device=dev)
+    if args.bands:
+        eval_r = _BandedEval(
+            BandedRenderer(args.width, args.height, trainer.n_bands,
+                           DEFAULT_CONFIG, impl=args.impl, span=span,
+                           balance=args.balance_bands, device=dev),
+            tc.refresh_every)
+    else:
+        eval_r = TiledRenderer(args.width, args.height, DEFAULT_CONFIG,
+                               capacity=capacity, impl=args.impl, device=dev)
     train_pool = np.arange(1, len(cams)) if len(cams) > 1 else np.arange(1)
     bsz = min(args.batch, len(train_pool))
     for step in range(start_step, args.steps):
         idx = rng.choice(train_pool, size=bsz, replace=False)
-        batch = camera_batch([cams[i] for i in idx], DEFAULT_CONFIG, dev)
-        tgt = torch.stack([torch.as_tensor(targets[i], device=dev)
-                           for i in idx])
-        state, loss = trainer.step(state, batch, tgt)
+        if args.bands:
+            # banded steps take one camera at a time (held topologies are
+            # per camera)
+            i = int(idx[0])
+            state, loss = trainer.step(
+                state, cams[i], torch.as_tensor(targets[i], device=dev))
+        else:
+            batch = camera_batch([cams[i] for i in idx], DEFAULT_CONFIG, dev)
+            tgt = torch.stack([torch.as_tensor(targets[i], device=dev)
+                               for i in idx])
+            state, loss = trainer.step(state, batch, tgt)
         if step % max(1, args.steps // 20) == 0:
             with torch.no_grad():
                 out = eval_r.render(state[0], cams[0])
@@ -290,18 +425,16 @@ def main(argv=None):
     pt.add_argument("--ckpt-dir", help="checkpoint/resume directory")
     pt.add_argument("--ckpt-every", type=int, default=50,
                     help="save a checkpoint every N steps")
-    # options of the JAX CLI whose paths are not ported yet: kept in the
-    # parser, refused at run time
-    pt.add_argument("--bands", type=int, default=0, help="not ported yet")
-    pt.add_argument("--span-bands", action="store_true",
-                    help="not ported yet")
-    pt.add_argument("--balance-bands", action="store_true",
-                    help="not ported yet")
-    pt.add_argument("--sort-scene", action="store_true",
-                    help="not ported yet")
     pt.add_argument("--banded-remat", default="full",
                     choices=["full", "gather", "none"],
-                    help="not ported yet (banded training)")
+                    help="per-band recompute ladder for --bands training "
+                         "(render/banded.py)")
+    pt.add_argument("--sort-scene", action="store_true",
+                    help="pre-sort the model by image row for the first "
+                         "camera (scene prep for --span-bands live-id "
+                         "windows; one-time cost)")
+    # options of the JAX CLI whose paths are not ported yet: kept in the
+    # parser, refused at run time
     pt.add_argument("--devices", type=int, default=0, help="not ported yet")
     pt.add_argument("--optimize-poses", type=int, default=0,
                     metavar="STEPS", help="not ported yet")

@@ -145,6 +145,34 @@ class GaussianModel(nn.Module):
         idx = torch.nonzero(self.abnormal_mask()).squeeze(1)
         return GaussianModel(*(getattr(self, k)[idx].clone() for k in LEAVES))
 
+    # ---- reordering ---------------------------------------------------------
+    @torch.no_grad()
+    def permute(self, perm) -> "GaussianModel":
+        """A new model with every leaf reordered by `perm` (scene prep).
+        Gaussian order does not change the image (rendering sorts per tile
+        by depth), so a physical reorder is free to do once."""
+        idx = torch.as_tensor(perm, device=self.device).long()
+        return GaussianModel(*(getattr(self, k)[idx].clone() for k in LEAVES))
+
+    @torch.no_grad()
+    def sorted_for_camera(self, camera, cfg=None) -> "GaussianModel":
+        """Reorder Gaussians by projected image-row span for `camera`, the
+        scene prep of span banding: a contiguous band of tile rows then
+        touches a contiguous range of ids.  The key is ty0 + ty1 of the
+        binning cull table (twice the row centre); invalid Gaussians sort
+        last.  The sort is stable, so ties keep id order and the
+        permutation equals the JAX package's."""
+        from ..config import DEFAULT_CONFIG
+        from ..render.binning import frame_cull_table
+        from ..render.tiled import _camera_mats
+        cfg = cfg or DEFAULT_CONFIG
+        w2c, proj = _camera_mats(camera)
+        tab = frame_cull_table(self.activate(), w2c, proj, camera.width,
+                               camera.height, cfg)
+        key = torch.where(tab.valid, tab.ty0.long() + tab.ty1.long(),
+                          2 * camera.height)
+        return self.permute(torch.argsort(key, stable=True))
+
 
 @torch.no_grad()
 def random_gaussians(generator: torch.Generator, n: int, extent: float = 1.0,

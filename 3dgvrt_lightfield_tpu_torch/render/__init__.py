@@ -1,5 +1,7 @@
-"""Renderers: brute-force ground truth and the tiled path, differentiable."""
+"""Renderers: brute-force ground truth, the tiled and the banded paths,
+differentiable."""
 
+from . import banded
 from . import binning
 from . import pallas_forward
 from . import pallas_vjp
@@ -12,6 +14,7 @@ from . import tiled
 from .pallas_forward import tile_forward, tile_forward_residual
 from .pallas_vjp import render_tiles_ad, tile_backward
 from .rows_vjp import rows64_from_model
-from .segreduce import segment_reduce
+from .segreduce import segment_reduce, segment_reduce_compact
 from .reference import render_image, render_rays
 from .tiled import TiledRenderer, render_image_tiled
+from .banded import BandedRenderer, render_image_banded

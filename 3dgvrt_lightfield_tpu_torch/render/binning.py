@@ -19,9 +19,15 @@ not fit are dropped and counted in `overflow`, and the renderer re-plans.
 
 The topology also carries the gradient-reduce plan (`segreduce.py`) that
 the gather's backward (`param_grads.chunked_gather`) sums per-pair
-cotangents with: the full-id-space plan for scenes up to 1.5M Gaussians,
-none (the prefix fallback) above.  `plan_reduce_capacity_from_table` sizes
-its rows from the measured survivors.
+cotangents with: the compact plan when the caller planned a live-Gaussian
+capacity (the banded path, `render/banded.py`), else the full-id-space
+plan for scenes up to 1.5M Gaussians, else none (the prefix fallback).
+`plan_reduce_capacity_from_table` and `plan_compact_reduce_from_table` size
+them from the measured survivors.
+
+Banding restricts binning to a subset of tile rows, round-robin (`stride`)
+or contiguous (`contig`); `band_rays`, `plan_row_split`, `band_rays_split`
+and `unband_image` cut the rays and reassemble the image to match.
 """
 
 from __future__ import annotations
@@ -38,7 +44,8 @@ from ..ops.kernels import kernel_scale
 from ..ops.sh import sh_basis_components
 from ..models.gaussians import ActivatedGaussians
 from .param_grads import chunked_gather
-from .segreduce import build_reduce_plan, plan_rows
+from .segreduce import (GROUP, build_reduce_plan, build_reduce_plan_compact,
+                        plan_rows, plan_rows_compact)
 from .tile_math import RAY_ROWS
 
 _I32 = torch.int32
@@ -61,7 +68,8 @@ class BinTopology(NamedTuple):
     pair_pos: torch.Tensor    # (capacity,) int32 PRE-SORT pair -> padded slot
     gauss_offsets: torch.Tensor  # (N,) int32 pre-sort pair range start
     gauss_counts: torch.Tensor   # (N,) int32 pre-sort pair range length
-    red: object               # segreduce.ReducePlan, or None (prefix fallback)
+    red: object               # segreduce.ReducePlan or CompactReducePlan,
+                              #    or None (prefix fallback)
 
 
 class BinnedScene(NamedTuple):
@@ -263,7 +271,7 @@ def bin_topology(act: ActivatedGaussians, w2c, proj, width: int, height: int,
                  cfg: RenderConfig, capacity: int, capacity_padded: int,
                  row_offset: int = 0, row_stride: int = 1,
                  capacity_reduce: int = 0, capacity_live: int = 0,
-                 row_count: int = 0,
+                 row_count: int = 0, capacity_range: int = 0,
                  with_reduce_plan: bool = True) -> BinTopology:
     """Build the depth-sorted, chunk-aligned pair-list TOPOLOGY (no params).
 
@@ -271,13 +279,15 @@ def bin_topology(act: ActivatedGaussians, w2c, proj, width: int, height: int,
     `row_offset` is binned; with `row_count > 0` (and stride 1) the
     contiguous rows [row_offset, row_offset + row_count).
     `capacity_reduce` is the planned row count of the gradient-reduce plan
-    (0: sized for every pre-cull pair); a forward-only caller passes
-    `with_reduce_plan=False` and gets `red = None` without building it."""
+    (0: sized for every pre-cull pair); `capacity_live > 0` asks for the
+    compact plan with that live-Gaussian capacity and the live-id window
+    `capacity_range` (0: the whole table).  A forward-only caller passes
+    `with_reduce_plan=False` and gets `red = None` without building one."""
     tab = frame_cull_table(act, w2c, proj, width, height, cfg)
     return bin_topology_from_table(tab, proj, width, height, cfg, capacity,
                                    capacity_padded, row_offset, row_stride,
                                    capacity_reduce, capacity_live, row_count,
-                                   with_reduce_plan)
+                                   capacity_range, with_reduce_plan)
 
 
 def bin_topology_from_table(tab: FrameCullTable, proj, width: int,
@@ -285,16 +295,11 @@ def bin_topology_from_table(tab: FrameCullTable, proj, width: int,
                             capacity_padded: int, row_offset: int = 0,
                             row_stride: int = 1, capacity_reduce: int = 0,
                             capacity_live: int = 0,
-                            row_count: int = 0,
+                            row_count: int = 0, capacity_range: int = 0,
                             with_reduce_plan: bool = True) -> BinTopology:
-    """Topology from a precomputed frame table (see FrameCullTable).
-
-    `capacity_live > 0` asks for the compact reduce plan of the banded path,
-    which is not ported yet."""
-    if capacity_live > 0:
-        raise NotImplementedError(
-            "the compact reduce plan (capacity_live > 0, kernel K4) comes "
-            "with the banded slice: ROADMAP.md section 1 item 8")
+    """Topology from a precomputed frame table (see FrameCullTable): the
+    banded renderer computes the table once per frame and calls this per
+    band."""
     g = cfg.chunk_size
     dev = tab.tx0.device
     n = tab.tx0.shape[0]
@@ -314,11 +319,17 @@ def bin_topology_from_table(tab: FrameCullTable, proj, width: int,
     # depth quantization params (per-gaussian, BEFORE pair expansion); the
     # f32 ops follow the JAX package's order, so both packages cut the same
     # depth levels up to a last-ulp difference.  With no valid gaussian the
-    # range is empty and every depth_q is 0 (no pair reads it then).
-    tile_bits = max(1, (num_tiles + 1).bit_length())
+    # range is empty and every depth_q is 0 (no pair reads it then).  The
+    # levels are the whole frame's even for a band: its tile count and its
+    # valid gaussians set them, so a band's per-tile order (ties included)
+    # is the unbanded frame's and banded images equal unbanded ones.  The
+    # JAX package quantizes per band (the band's tile count and valid
+    # set), which reorders near-equal depths at full width.
+    frame_tiles = nx * (height // cfg.tile_size)
+    tile_bits = max(1, (frame_tiles + 1).bit_length())
     depth_bits = min(31 - tile_bits, 24)
-    dmin = torch.where(valid, depth, math.inf).min()
-    dmax = torch.where(valid, depth, -math.inf).max()
+    dmin = torch.where(tab.valid, depth, math.inf).min()
+    dmax = torch.where(tab.valid, depth, -math.inf).max()
     dscale = (2.0 ** depth_bits - 2.0) / torch.clamp_min(dmax - dmin, 1e-9)
     depth_q = torch.clamp(
         (torch.clamp_min(depth - dmin, 0.0) * dscale).to(_I64),
@@ -389,10 +400,20 @@ def bin_topology_from_table(tab: FrameCullTable, proj, width: int,
     pair_pos[p_sorted] = dest_drop
 
     # grouped gradient-reduce layout (segreduce.py): pure topology work,
-    # amortized over the bind/refresh cadence.  Scenes above
-    # REDUCE_PLAN_MAX_N take the prefix fallback (red = None).
+    # amortized over the bind/refresh cadence.  Three regimes: the compact
+    # plan over the band's live gaussians when a live capacity is planned
+    # (the banded path), else the full-id-space plan up to
+    # REDUCE_PLAN_MAX_N, else none (the prefix fallback)
     red = None
-    if with_reduce_plan and n <= REDUCE_PLAN_MAX_N:
+    if with_reduce_plan and capacity_live > 0:
+        assert capacity_live % GROUP == 0, capacity_live
+        # without a measured survivor count the pair capacity bounds it
+        cap_r = capacity_reduce or plan_rows_compact(capacity)
+        red, red_overflow = build_reduce_plan_compact(
+            pair_g, pair_pos, offsets, counts, n, capacity, capacity_padded,
+            capacity_live, cap_r, capacity_range)
+        overflow = overflow + red_overflow
+    elif with_reduce_plan and n <= REDUCE_PLAN_MAX_N:
         red, red_overflow = build_reduce_plan(
             pair_g, pair_pos, offsets, counts, n, capacity, capacity_padded,
             capacity_reduce)
@@ -477,52 +498,38 @@ def _bucket_capacity(v: int, g: int, ratio: float = 1.25) -> int:
 
 def _host_expand_cull(tab: FrameCullTable, proj, width, height,
                       cfg: RenderConfig, band=(0, 1)):
-    """Host (NumPy) replication of the expansion + fine cull.
+    """The expansion + fine cull of `bin_topology`, counted for planning.
 
-    Returns (total_rect_pairs, per_tile_survivors, nx, ny)."""
+    Runs on the table's device (the card in production): every rect pair
+    is expanded and culled exactly as binning does, with no capacity cut.
+    Returns (total_rect_pairs, per_tile_survivors, nx, ny, live_counts) for
+    the band; per_tile_survivors (per local tile) and live_counts (surviving
+    pairs per Gaussian) are NumPy arrays."""
     ts = cfg.tile_size
     nx, ny = width // ts, height // ts
-    tx0, tx1 = tab.tx0.cpu().numpy().astype(np.int64), tab.tx1.cpu().numpy().astype(np.int64)
-    ty0, ty1 = tab.ty0.cpu().numpy().astype(np.int64), tab.ty1.cpu().numpy().astype(np.int64)
-    valid = tab.valid.cpu().numpy()
+    dev = tab.tx0.device
+    n = tab.tx0.shape[0]
+    (tx0, ty0, tx1, ty1), valid, ny = _band_localize(tab, ny, band)
+    tx0, ty0, tx1, ty1 = (a.long() for a in (tx0, ty0, tx1, ty1))
     offset, stride = band[0], band[1]
-    count = band[2] if len(band) > 2 else 0
-    if stride != 1:
-        assert ny % stride == 0, (ny, stride)
-        lny = ny // stride
-        ly0 = -(-(ty0 - offset) // stride)            # ceil
-        ly1 = (ty1 - offset) // stride                # floor
-        valid = valid & (ly1 >= ly0) & (ly1 >= 0) & (ly0 <= lny - 1)
-        ty0 = np.clip(ly0, 0, lny - 1)
-        ty1 = np.clip(ly1, 0, lny - 1)
-        ny = lny
-    elif count:
-        lny = count
-        ly0 = ty0 - offset
-        ly1 = ty1 - offset
-        valid = valid & (ly1 >= 0) & (ly0 <= lny - 1)
-        ty0 = np.clip(ly0, 0, lny - 1)
-        ty1 = np.clip(ly1, 0, lny - 1)
-        ny = lny
-    counts = np.where(valid, (tx1 - tx0 + 1) * (ty1 - ty0 + 1), 0)
+    rect_w = tx1 - tx0 + 1
+    counts = torch.where(valid, rect_w * (ty1 - ty0 + 1), 0)
     total = int(counts.sum())
-    rect_w = (tx1 - tx0 + 1)
-    pg = np.repeat(np.arange(counts.shape[0]), counts)
-    offs = np.cumsum(counts) - counts
-    j = np.arange(total) - np.repeat(offs, counts)
+    pg = torch.repeat_interleave(torch.arange(n, device=dev), counts,
+                                 output_size=total)
+    offs = torch.cumsum(counts, 0) - counts
+    j = torch.arange(total, device=dev) - offs[pg]
     tile_x = tx0[pg] + j % rect_w[pg]
-    tile_y = ty0[pg] + j // rect_w[pg]
-    cs = [c.cpu() for c in tab.cs]
-    v9 = torch.stack([c.cpu() for c in tab.v], dim=1)
-    pgt = torch.from_numpy(pg)
+    tile_y = ty0[pg] + torch.div(j, rect_w[pg], rounding_mode="floor")
     proj = np.asarray(proj, np.float32)
     keep = _pair_ellipsoid_cull(
-        torch.from_numpy(tile_x), torch.from_numpy(tile_y * stride + offset),
-        cs[0][pgt], cs[1][pgt], cs[2][pgt], v9[pgt],
-        float(proj[0, 0]), float(proj[1, 1]), width, height,
-        cfg.tile_size).numpy()
-    tile_id = (tile_y * nx + tile_x)[keep]
-    return total, np.bincount(tile_id, minlength=nx * ny), nx, ny
+        tile_x, tile_y * stride + offset, tab.cs[0][pg], tab.cs[1][pg],
+        tab.cs[2][pg], torch.stack(tab.v, dim=1)[pg], float(proj[0, 0]),
+        float(proj[1, 1]), width, height, cfg.tile_size)
+    per_tile = torch.bincount((tile_y * nx + tile_x)[keep], minlength=nx * ny)
+    live_counts = torch.bincount(pg[keep], minlength=n)
+    return (total, per_tile.cpu().numpy(), nx, ny,
+            live_counts.cpu().numpy())
 
 
 def plan_capacity_from_table(tab: FrameCullTable, proj, width, height,
@@ -530,8 +537,8 @@ def plan_capacity_from_table(tab: FrameCullTable, proj, width, height,
                              band=(0, 1), bucket_ratio: float = 1.25):
     """Host capacity plan from a frame table — see plan_capacity."""
     g = cfg.chunk_size
-    total, per_tile, nx, ny = _host_expand_cull(tab, proj, width, height,
-                                                cfg, band)
+    total, per_tile, nx, ny, _ = _host_expand_cull(tab, proj, width, height,
+                                                   cfg, band)
     capacity = max(g, int(math.ceil(total * slack / g)) * g)
     # slack per tile for camera motion + a pool of whole chunks for tiles
     # that are empty now but covered later; runtime overflow is reported in
@@ -551,12 +558,40 @@ def plan_reduce_capacity_from_table(tab: FrameCullTable, proj, width, height,
     survivor pairs x slack, bucketed on a 1.1x grid, plus one padded block
     per 256-Gaussian group (`segreduce.plan_rows`).  Rows that do not fit
     at run time count into the topology's overflow (re-plan contract)."""
-    _, per_tile, _, _ = _host_expand_cull(tab, proj, width, height, cfg,
-                                          band)
+    _, per_tile, _, _, _ = _host_expand_cull(tab, proj, width, height, cfg,
+                                             band)
     survivors = int(per_tile.sum())
     budget = _bucket_capacity(int(math.ceil(survivors * slack)),
                               cfg.chunk_size, ratio=bucket_ratio)
     return plan_rows(budget, n_rows)
+
+
+def plan_compact_reduce_from_table(tab: FrameCullTable, proj, width, height,
+                                   cfg: RenderConfig,
+                                   slack: float = 1.05, band=(0, 1)):
+    """Host plan for the compact gradient-reduce layout of one band.
+
+    Returns (capacity_live, capacity_reduce, capacity_range): the
+    live-Gaussian capacity (bucketed, a multiple of GROUP), the dense row
+    count (the surviving pairs x slack, `segreduce.plan_rows_compact`) and
+    the live-id window width (first..last live id, x slack).  With a
+    y-sorted model and contiguous bands the window is narrow; otherwise it
+    degrades to ~N.  Runtime overflow of any budget is folded into the
+    topology's overflow (re-plan contract)."""
+    _, per_tile, _, _, live_counts = _host_expand_cull(tab, proj, width,
+                                                       height, cfg, band)
+    n = live_counts.shape[0]
+    n_live = int((live_counts > 0).sum())
+    survivors = int(per_tile.sum())
+    cap_live = _bucket_capacity(int(math.ceil(max(n_live, 1) * slack)),
+                                GROUP, ratio=1.1)
+    cap_r = plan_rows_compact(int(math.ceil(survivors * slack)))
+    live_idx = np.nonzero(live_counts > 0)[0]
+    width_ids = (int(live_idx[-1]) - int(live_idx[0]) + 1) if live_idx.size \
+        else 1
+    cap_range = min(_bucket_capacity(int(math.ceil(width_ids * slack)),
+                                     GROUP, ratio=1.1), n)
+    return cap_live, cap_r, cap_range
 
 
 def plan_capacity(act: ActivatedGaussians, w2c, proj, width, height,
@@ -599,3 +634,62 @@ def untile(img_tiled: torch.Tensor, width: int, height: int, ts: int):
     c = img_tiled.shape[1]
     return (img_tiled.reshape(ny, nx, c, ts, ts)
             .permute(0, 3, 1, 4, 2).reshape(height, width, c))
+
+
+def band_rays(camera, cfg: RenderConfig, stride: int, device,
+              mode: str = "stride") -> torch.Tensor:
+    """Tiled rays split into `stride` tile-row bands: (stride, local_tiles,
+    RAY_ROWS, R).  mode="stride": band d owns the global tile rows d,
+    d + stride, ...; mode="contig": the contiguous rows
+    [d * ny / stride, (d + 1) * ny / stride) (span banding)."""
+    ts = cfg.tile_size
+    rays = tile_rays(camera, cfg, device)             # (ny*nx, 24, R)
+    ny, nx = camera.height // ts, camera.width // ts
+    assert ny % stride == 0, (ny, stride)
+    if mode == "contig":
+        return rays.reshape(stride, (ny // stride) * nx, RAY_ROWS, ts * ts)
+    assert mode == "stride", mode
+    byband = rays.reshape(ny // stride, stride, nx, RAY_ROWS, ts * ts)
+    return byband.permute(1, 0, 2, 3, 4).reshape(
+        stride, (ny // stride) * nx, RAY_ROWS, ts * ts).contiguous()
+
+
+def plan_row_split(tab: FrameCullTable, proj, width, height,
+                   cfg: RenderConfig, n_bands: int):
+    """Pair-balanced contiguous tile-row split: ((offset, count), ...).
+
+    Cuts the tile rows at the n-quantiles of the per-row survivor-pair
+    prefix sum: unequal row counts, ~equal pairs, every band keeping at
+    least one row."""
+    _, per_tile, nx, ny, _ = _host_expand_cull(tab, proj, width, height, cfg)
+    assert 1 <= n_bands <= ny, (n_bands, ny)
+    cum = np.cumsum(per_tile.reshape(ny, nx).sum(axis=1))
+    total = max(int(cum[-1]), 1)
+    cuts = [0]
+    for k in range(1, n_bands):
+        j = int(np.searchsorted(cum, total * k / n_bands))
+        # leave enough rows for the remaining bands too
+        cuts.append(max(cuts[-1] + 1, min(j, ny - (n_bands - k))))
+    cuts.append(ny)
+    return tuple((cuts[i], cuts[i + 1] - cuts[i]) for i in range(n_bands))
+
+
+def band_rays_split(camera, cfg: RenderConfig, specs, device):
+    """Per-band ray arrays of a variable (offset, count) row split: a tuple
+    of (count * nx, RAY_ROWS, R) tensors."""
+    rays = tile_rays(camera, cfg, device)             # (ny*nx, 24, R)
+    nx = camera.width // cfg.tile_size
+    return tuple(rays[off * nx:(off + count) * nx] for off, count in specs)
+
+
+def unband_image(bands: torch.Tensor, width: int, height: int, ts: int,
+                 mode: str = "stride") -> torch.Tensor:
+    """(stride, local_H, W, C) band images -> (H, W, C): round-robin tile
+    rows interleaved (mode="stride") or row blocks stacked ("contig")."""
+    stride, lh, w, c = bands.shape
+    if mode == "contig":
+        return bands.reshape(height, width, c)
+    assert mode == "stride", mode
+    lny = lh // ts
+    return (bands.reshape(stride, lny, ts, w, c)
+            .permute(1, 0, 2, 3, 4).reshape(height, width, c))

@@ -10,6 +10,10 @@ scatter into contiguous segment sums.  Two routes:
   * the grouped reduce plan (`segreduce.py`, the default up to 1.5M
     Gaussians): the slot gather and the per-Gaussian sum in one kernel, K3
     on the card (`segreduce.segment_reduce`), a direct sum per Gaussian;
+  * the compact plan of the banded path (`segreduce.CompactReducePlan`):
+    the same sum over the band's live Gaussians renumbered densely, K4 on
+    the card (`segreduce.segment_reduce_compact`), then one windowed
+    expansion back to the table;
   * the prefix fallback (no plan in the topology): a blocked inclusive
     cumsum and segment differences, plain PyTorch.
 """
@@ -18,7 +22,9 @@ from __future__ import annotations
 
 import torch
 
-from .segreduce import GROUP, segment_reduce, segment_reduce_plain
+from .segreduce import (GROUP, CompactReducePlan, segment_reduce,
+                        segment_reduce_compact, segment_reduce_compact_plain,
+                        segment_reduce_plain)
 
 
 def blocked_cumsum(x: torch.Tensor, block: int = 256) -> torch.Tensor:
@@ -65,6 +71,27 @@ def _bwd_segreduce(n_rows, red, bar_flat, impl: str):
     return out[:n_rows]
 
 
+def _bwd_segreduce_compact(n_rows, red: CompactReducePlan, bar_flat,
+                           impl: str):
+    """Compact direct segment sum (K4 for "auto"/"cuda" on CUDA tensors, the
+    plain version for "torch" or on the CPU), then the expansion back to
+    the (n_rows, C) table: the plan's live-id window `src_range` gathers
+    the compact sums (ids outside the band's live set read zero) and lands
+    at rows [base, base + window) in one indexed copy."""
+    n_groups_c = red.out_shape.shape[0]
+    cap_live = n_groups_c * GROUP
+    if impl == "torch":
+        out = segment_reduce_compact_plain(bar_flat, red, n_groups_c)
+    else:
+        out = segment_reduce_compact(bar_flat, red, n_groups_c)
+    src = red.src_range.long()
+    sub = torch.where((src < cap_live)[:, None],
+                      out[torch.clamp_max(src, cap_live - 1)], 0.0)
+    rows = red.base.long() + torch.arange(src.shape[0], device=src.device)
+    full = bar_flat.new_zeros((n_rows, bar_flat.shape[1]))
+    return full.index_copy_(0, rows, sub)
+
+
 class _ChunkedGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, rows, pair_gauss, pair_pos, offsets, counts,
@@ -80,6 +107,9 @@ class _ChunkedGather(torch.autograd.Function):
         if ctx.red is None:
             grad_rows = _bwd_xla_prefix(ctx.n_rows, pair_pos, offsets,
                                         counts, bar_flat)
+        elif isinstance(ctx.red, CompactReducePlan):
+            grad_rows = _bwd_segreduce_compact(ctx.n_rows, ctx.red, bar_flat,
+                                               ctx.impl)
         else:
             grad_rows = _bwd_segreduce(ctx.n_rows, ctx.red, bar_flat,
                                        ctx.impl)
@@ -97,7 +127,8 @@ def chunked_gather(chunk_size: int, rows: torch.Tensor,
     maps padded slot -> row id (N = dummy); `pair_pos` maps PRE-SORT pair ->
     padded slot (P_pad = culled/dropped); `offsets`/`counts` give each
     Gaussian's contiguous pre-sort pair range; `red` is the topology's
-    `segreduce.ReducePlan`, or None for the prefix fallback.  Without a
+    `segreduce.ReducePlan` or `CompactReducePlan`, or None for the prefix
+    fallback.  Without a
     gradient to take (grad off, or `rows` needs none) it is the bare gather.
     """
     if not (torch.is_grad_enabled() and rows.requires_grad):

@@ -138,6 +138,17 @@ def _exclusive_cumsum_g(x: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(x, dim=-2) - x
 
 
+def _suffix_sum_g(x: torch.Tensor) -> torch.Tensor:
+    """Exclusive suffix sum over the Gaussian axis (-2): the sum over the
+    later Gaussians, accumulated from the last one as K2's reverse walk
+    does.  Past a ray's last nonzero term it is exactly zero; a total minus
+    a prefix sum leaves a rounding residue there, which Adam's first step
+    (eps 1e-15) turns into a full learning-rate update."""
+    rev = torch.flip(torch.cumsum(torch.flip(x, (-2,)), dim=-2), (-2,))
+    return torch.cat([rev[..., 1:, :], torch.zeros_like(rev[..., :1, :])],
+                     dim=-2)
+
+
 def chunk_core_bwd(rays: torch.Tensor, chunk: torch.Tensor,
                    t_in: torch.Tensor, bar_tout: torch.Tensor,
                    bar_rgb: torch.Tensor, bar_dep: torch.Tensor,
@@ -229,17 +240,13 @@ def chunk_core_bwd(rays: torch.Tensor, chunk: torch.Tensor,
         # masked total; u >= 1 - max_alpha > 0
         bar_p = bar_tb * t_in
         bar_tin = bar_tin + torch.sum(bar_tb * prod_excl, dim=-2, keepdim=True)
-        pp = bar_p * prod_excl
-        suffix_pp = (torch.sum(pp, dim=-2, keepdim=True)
-                     - _exclusive_cumsum_g(pp) - pp)
+        suffix_pp = _suffix_sum_g(bar_p * prod_excl)
         bar_u = (suffix_pp + torch.where(active, bar_m * m_tot, 0.0)) / u
         bar_ae = bar_ae - bar_u
     else:
         bar_ce = bar_tb * t_in * ece
         bar_tin = bar_tin + torch.sum(bar_tb * ece, dim=-2, keepdim=True)
-        total_ce = torch.sum(bar_ce, dim=-2, keepdim=True)
-        bar_la = (total_ce - _exclusive_cumsum_g(bar_ce) - bar_ce
-                  + torch.where(active, bar_s, 0.0))
+        bar_la = _suffix_sum_g(bar_ce) + torch.where(active, bar_s, 0.0)
         bar_ae = bar_ae - bar_la / (1.0 - alpha_eff)
     bar_alpha = torch.where(accept, bar_ae, 0.0)
     notclamped = ra <= cfg.max_alpha

@@ -7,9 +7,9 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
-  1. set-up: the card's name and power limit, TF32 off, the three kernel
-     libraries (tile_forward, tile_backward, segment_reduce) built from
-     csrc/ with nvcc, all at once;
+  1. set-up: the card's name and power limit, TF32 off, the four kernel
+     libraries (tile_forward, tile_backward, segment_reduce,
+     segment_reduce_compact) built from csrc/ with nvcc, all at once;
   2. the tile kernels against their plain PyTorch versions on the same
      binned inputs: small scenes at tile_size=8/chunk_size=128, at the
      defaults with log-space transmittance, with another kernel degree, a
@@ -22,9 +22,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      TiledRenderer.plan + render under torch.no_grad() (serving: K1 without
      the residual), with the launch counts read around that run; then
      CUDA-event timings of render, render_bound, K1 alone and (once) its
-     plain version;
+     plain version; then banded serving of the same frame against it
+     (render_image_banded with 4 stride bands, 4 span bands on the y-sorted
+     model, a 2-band balanced BandedRenderer.render_bound), no K2 or K4;
   4. the serving entry point: the CLI renders 4 orbit frames of that scene
-     at 1920x1088 from a PLY;
+     at 1920x1088 from a PLY, unbanded and with --bands 4, and benchmarks
+     it with --bands 4;
   5. the full-width training window (bench.py's protocol): plan with the
      reduce capacity, one topology refresh with the reduce plan, then 10
      steps of rows64_from_model -> gather_from_rows -> forward_dispatch ->
@@ -36,9 +39,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   7. the whole-step gradient, kernels against plain versions, on a
      3000-Gaussian 128^2 scene and on a 512-tile slice of the full frame;
   8. the training entry point: the CLI trains the PLY for 3 steps at
-     1920x1088 against the phase-4 renders and writes a PLY;
-  9. one JSON line per kernel with its launches, error, time and bound;
- 10. the last line: {"ok": true, "device": {...}}.
+     1920x1088 against the phase-4 renders and writes a PLY, unbanded and
+     with --bands 2 --span-bands --sort-scene;
+  9. K4 against its plain version and index_add_ on the two span bands of
+     a 3000-Gaussian 128^2 scene, and the banded step's gradients, kernels
+     against plain versions, on stride, span and balanced bands;
+ 10. the garden-scale banded training window (the JAX package's
+     scripts/config2_scale.py scene: 5M Gaussians at 1920x1088, 2 span
+     bands on the y-sorted model): generation, y-sort, plan and bind
+     timed, then 10 Trainer.steps with launch counts, step time and peak
+     memory; then K1's residual and K2 against their plain versions on
+     band 0's busiest 512 tiles, and K4 on the window's real per-slot
+     cotangents, timed against its plain version and index_add_;
+ 11. one JSON line per kernel with its launches, error, time and bound;
+ 12. the last line: {"ok": true, "device": {...}}.
 
 It needs no network and stops every process it starts.  Without CUDA, or
 run from a directory without the port's package, it exits non-zero before
@@ -77,6 +91,9 @@ OPS_PER_HIT_BWD = 99 + 10 + 6 + 14 + 9 + 17 + 42 + 30 + 48 + 61
 TRAIN_K, TRAIN_LR, TRAIN_TARGET = 10, 1e-12, 0.3
 
 FULL_W, FULL_H, FULL_N = 1920, 1088, 300_000
+#: the garden-scale window (scripts/config2_scale.py:49-62): Gaussians,
+#: span bands, field of view
+GARDEN_N, GARDEN_BANDS, GARDEN_FOVY = 5_000_000, 2, 60.0
 
 
 def fail(msg):
@@ -265,6 +282,87 @@ def check_training_kernels(torch, binned, rays, cfg, label, seed):
     return float(d_tin.max()), k2_abs
 
 
+def tile_slice(scene, rays_t, chunk_size):
+    """The 512 consecutive tiles around the busiest one of a binned scene:
+    (first tile, first chunk, end chunk)."""
+    import torch
+    from gvrt_tpu_torch.render.pallas_forward import tile_chunk_runs
+    start, count = tile_chunk_runs(scene.tile_counts, scene.chunks.shape[0],
+                                   chunk_size)
+    t0 = min(int(torch.argmax(scene.tile_counts)) // 512 * 512,
+             rays_t.shape[0] - 512)
+    c0 = int(start[t0])
+    c1 = int(start[t0 + 511]) + int(count[t0 + 511])
+    return t0, c0, c1
+
+
+def slice_scene(scene, rays_t, chunk_size):
+    """The 512-tile slice of `tile_slice` as a binned scene and its rays."""
+    t0, c0, c1 = tile_slice(scene, rays_t, chunk_size)
+    part = scene._replace(chunks=scene.chunks[c0:c1].contiguous(),
+                          tile_counts=scene.tile_counts[t0:t0 + 512]
+                          .contiguous())
+    return part, rays_t[t0:t0 + 512].contiguous()
+
+
+def check_compact_reduce(torch, sr, bar_flat, red, label):
+    """K4 against its plain version and index_add_ on one compact plan and
+    per-slot cotangents, after a NaN-poisoned allocator: relative L2
+    <= 1e-5, two runs bit-identical, every output row finite, the rows of
+    ids past the last live one exactly zero.  Returns the check and the
+    index_add_ operands (compact ids, pre-gathered rows, output)."""
+    n_groups = red.out_shape.shape[0]
+    p_pad = bar_flat.shape[0]
+    poison_allocator(torch, 2 * n_groups * sr.GROUP * 64 * 4, bar_flat.device)
+    got = sr.segment_reduce_compact(bar_flat, red, n_groups)
+    again = sr.segment_reduce_compact(bar_flat, red, n_groups)
+    plain = sr.segment_reduce_compact_plain(bar_flat, red, n_groups)
+    cid = sr.compact_ids(red)
+    live = cid < n_groups * sr.GROUP
+    idx = cid[live]
+    vals = bar_flat[torch.clamp_max(red.slot.long()[live], p_pad - 1)]
+    lib = torch.zeros_like(plain)
+    lib.index_add_(0, idx, vals)
+    torch.cuda.synchronize()
+    n_live = int(idx.max()) + 1 if idx.numel() else 0
+    check = {"rel_l2_vs_plain": rel_l2(got, plain),
+             "rel_l2_vs_index_add": rel_l2(got, lib),
+             "max_abs_err": float((got - plain).abs().max()),
+             "bit_identical_runs": torch.equal(got, again),
+             "finite": bool(got.isfinite().all()),
+             "past_live_zero": bool((got[n_live:] == 0).all()),
+             "rows": int(red.slot.numel()), "live_rows": int(live.sum()),
+             "live_ids": n_live, "cap_live": n_groups * sr.GROUP}
+    print(json.dumps({"phase": "segment_reduce_compact_vs_plain",
+                      "scene": label, **check}), flush=True)
+    if max(check["rel_l2_vs_plain"], check["rel_l2_vs_index_add"]) > 1e-5 \
+            or not (check["bit_identical_runs"] and check["finite"]
+                    and check["past_live_zero"]) or n_live == 0:
+        fail(f"K4 disagrees with its plain version or index_add_ on {label}")
+    return check, idx, vals, lib
+
+
+def compact_bound_ms(live_rows, n_groups, nb):
+    """K4's least time: the live rows gathered once (256 B each, one add
+    per float), the (cap_live, 64) table written, each live row's slot and
+    local id and each block's k0 read."""
+    return roofline(live_rows * 64 * 4 + n_groups * 256 * 64 * 4
+                    + live_rows * 8 + nb * 4, live_rows * 64)
+
+
+def compare_frames(got, want, label):
+    """A banded frame against the unbanded one: overflow 0, hit counts
+    equal on every ray, rgb and T within 1e-5."""
+    d_rgb = float((got["rgb"] - want["rgb"]).abs().max())
+    d_t = float((got["transmittance"] - want["transmittance"]).abs().max())
+    hits = bool((got["hit_count"] == want["hit_count"]).all())
+    print(json.dumps({"phase": "banded_vs_unbanded", "bands": label,
+                      "overflow": int(got["overflow"]), "hits_equal": hits,
+                      "rgb_max_abs": d_rgb, "t_max_abs": d_t}), flush=True)
+    if int(got["overflow"]) or not hits or max(d_rgb, d_t) > 1e-5:
+        fail(f"banded frame ({label}) differs from the unbanded one")
+
+
 def bench_scene(gt, torch, device):
     """bench.py's synthetic scene, drawn from a torch.Generator."""
     g = torch.Generator(device=device).manual_seed(0)
@@ -295,6 +393,154 @@ def binned_for(gt, model, cam, cfg, pad_factor=1):
     return binned, binning.tile_rays(cam, cfg, model.device)
 
 
+def garden_scene(gt, torch, dev):
+    """The BASELINE config[2] scene of scripts/config2_scale.py:49-62, drawn
+    from a torch.Generator, and its 1920x1088 camera."""
+    import numpy as np
+    g = torch.Generator(device=dev).manual_seed(0)
+    model = gt.random_gaussians(g, GARDEN_N, extent=2.0,
+                                scale_range=(-7.3, -5.3), device=dev)
+    with torch.no_grad():
+        model.opacity_logit.copy_(-3.5 + 4.0 * torch.rand(
+            GARDEN_N, generator=g, device=dev))
+        model.means[:, 2] -= 4.0
+    return model, gt.Camera.from_fovy(FULL_W, FULL_H, GARDEN_FOVY, np.eye(4))
+
+
+def garden_window(gt, torch, dev, bd, binning, pf, sr, rows64_from_model,
+                  reset_launches, launches, event_ms, name, power):
+    """The garden-scale banded training window: the JAX package's BASELINE
+    config[2] scene (scripts/config2_scale.py:49-62, drawn from a
+    torch.Generator), y-sorted, 2 span bands, TrainConfig defaults (Adam,
+    remat "full", refresh_every 10); 10 Trainer.steps against 0.3.  Then
+    K1's residual and K2 against their plain versions on band 0's busiest
+    512 tiles, and K4 on band 0's real per-slot cotangents.  Returns K4's
+    times, bound and error, the window's launch counts and the largest
+    absolute errors of T_in and of K2 on the slice."""
+    import numpy as np
+    t_phase = time.time()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+
+    def timed(key, fn):
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        timings[key] = time.time() - t0
+        return res
+
+    base = gt.DEFAULT_CONFIG
+    model, cam = timed("generate_s", lambda: garden_scene(gt, torch, dev))
+    model = timed("sort_s", lambda: model.sorted_for_camera(cam, base))
+    tc = gt.train.TrainConfig(span_bands=True)
+    trainer = gt.train.Trainer(FULL_W, FULL_H, base, tc,
+                               n_bands=GARDEN_BANDS, device=dev)
+    capacity = timed("plan_s", lambda: trainer.renderer.plan(model, cam))
+    topos = timed("bind_s", lambda: trainer.bind(model, cam))
+    state = trainer.init(model)
+    target = torch.full((FULL_H, FULL_W, 3), TRAIN_TARGET, device=dev)
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+
+    def window():
+        nonlocal state
+        losses = []
+        for _ in range(TRAIN_K):
+            state, loss = trainer.step(state, cam, target)
+            losses.append(loss)
+        return losses
+
+    window_ms, losses = event_ms(window)
+    torch.cuda.synchronize()
+    window_launches = launches()
+    peak_window = torch.cuda.max_memory_allocated()
+    gnorm = float(model.means.grad.norm())
+    overflow = int(trainer.last_overflow)
+    with torch.no_grad():
+        mean_hits = float(trainer.renderer.render_bound(model)["hit_count"]
+                          .mean())
+    reds = [t.red for t in topos]
+    print(json.dumps({
+        "phase": "garden_window", "gaussians": GARDEN_N,
+        "width": FULL_W, "height": FULL_H, "bands": GARDEN_BANDS,
+        "mode": trainer.renderer.mode, "remat": trainer.renderer.remat,
+        "capacity": list(capacity),
+        "capacity_live": trainer.renderer.capacity_live,
+        "capacity_reduce": trainer.renderer.capacity_reduce,
+        "capacity_range": trainer.renderer.capacity_range,
+        "band_bases": [int(r.base[0]) for r in reds],
+        "chunk_array_gb": capacity[1] * 64 * 4 / 1e9, **timings,
+        "steps": TRAIN_K, "step_ms": window_ms / TRAIN_K,
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+        "mean_hits_per_ray": mean_hits, "overflow": overflow,
+        "means_grad_norm": gnorm, "launches": window_launches,
+        "memory_before_gb": mem0 / 1e9,
+        "peak_setup_gb": peak_before / 1e9,
+        "peak_window_gb": peak_window / 1e9,
+        "card": name, "power_limit": power}), flush=True)
+    print(json.dumps({"metric": "garden_train_step_ms",
+                      "ms": window_ms / TRAIN_K,
+                      "mrays_per_s": FULL_W * FULL_H / window_ms / 1e3,
+                      "card": name, "power_limit": power}), flush=True)
+    if overflow or mean_hits < 15 or not all(
+            np.isfinite(float(x)) for x in losses) or not gnorm > 0:
+        fail(f"garden window: overflow {overflow}, hits {mean_hits:.2f}, "
+             f"losses {[float(x) for x in losses]}, grad norm {gnorm}")
+    # remat "full": K1's residual twice per band per step (forward and the
+    # backward's recompute), K2 and K4 once each; no K3, no serving K1
+    want = {"tile_forward": 0, "segment_reduce": 0,
+            "tile_forward_residual": 2 * GARDEN_BANDS * TRAIN_K,
+            "tile_backward": GARDEN_BANDS * TRAIN_K,
+            "segment_reduce_compact": GARDEN_BANDS * TRAIN_K}
+    if window_launches != want:
+        fail(f"garden window launches {window_launches}, expected {want}")
+
+    # K4 at the window's shapes: band 0's per-slot cotangents of its share
+    # of the window's L1 loss
+    topo = topos[0]
+    rays = binning.band_rays(cam, base, GARDEN_BANDS, dev, mode="contig")[0]
+    with torch.no_grad():
+        rows = rows64_from_model(model, base)
+        chunks = binning.gather_from_rows(rows, topo, base)
+    chunks.requires_grad_()
+    acc = pf.forward_dispatch(binning.binned_scene(chunks, topo), rays, base,
+                              "cuda")
+    img = binning.untile(acc, FULL_W, FULL_H // GARDEN_BANDS, base.tile_size)
+    ((img[..., 0:3] - TRAIN_TARGET).abs().sum()
+     / (FULL_W * FULL_H * 3)).backward()
+    bar = chunks.grad.reshape(-1, 64)
+    del rows, acc, img
+    # K1's residual and K2 on band 0's deepest 512 tiles (the long reverse
+    # walks of the window's sub-pixel, low-opacity Gaussians)
+    part, part_rays = slice_scene(
+        binning.binned_scene(chunks.detach(), topo), rays, base.chunk_size)
+    tin_err, k2_err = check_training_kernels(
+        torch, part, part_rays, base, "garden_band0_512_tiles", 15)
+    del part, part_rays
+    check, idx, vals, lib = check_compact_reduce(torch, sr, bar, topo.red,
+                                                 "garden_window_band0")
+    n_groups = topo.red.out_shape.shape[0]
+    k4_ms = cuda_ms(lambda: sr.segment_reduce_compact(bar, topo.red,
+                                                      n_groups))
+    k4_plain_ms = cuda_ms(lambda: sr.segment_reduce_compact_plain(
+        bar, topo.red, n_groups), n=3)
+    k4_lib_ms = cuda_ms(lambda: lib.index_add_(0, idx, vals))
+    k4_b_ms, k4_b_by = compact_bound_ms(check["live_rows"], n_groups,
+                                        topo.red.k0.shape[0])
+    for metric, ms in (("segment_reduce_compact_ms", k4_ms),
+                       ("segment_reduce_compact_plain_ms", k4_plain_ms),
+                       ("segment_reduce_compact_index_add_ms", k4_lib_ms)):
+        print(json.dumps({"metric": metric, "ms": ms, "card": name,
+                          "power_limit": power}), flush=True)
+    print(json.dumps({"phase": "garden_k4", "bound_ms": k4_b_ms,
+                      "bound_by": k4_b_by,
+                      "seconds": time.time() - t_phase}), flush=True)
+    return (k4_ms, k4_plain_ms, k4_lib_ms, k4_b_ms, k4_b_by,
+            check["max_abs_err"], window_launches, tin_err, k2_err)
+
+
 def main():
     import numpy as np
     import torch
@@ -305,6 +551,7 @@ def main():
     sys.path.insert(0, ROOT)
     import gvrt_tpu_torch as gt
     from gvrt_tpu_torch import _build
+    from gvrt_tpu_torch.render import banded as bd
     from gvrt_tpu_torch.render import binning
     from gvrt_tpu_torch.render import pallas_forward as pf
     from gvrt_tpu_torch.render import pallas_vjp as pv
@@ -314,14 +561,16 @@ def main():
 
     def reset_launches():
         for fn in (pf.tile_forward, pf.tile_forward_residual,
-                   pv.tile_backward, sr.segment_reduce):
+                   pv.tile_backward, sr.segment_reduce,
+                   sr.segment_reduce_compact):
             fn.launches = 0
 
     def launches():
         return {"tile_forward": pf.tile_forward.launches,
                 "tile_forward_residual": pf.tile_forward_residual.launches,
                 "tile_backward": pv.tile_backward.launches,
-                "segment_reduce": sr.segment_reduce.launches}
+                "segment_reduce": sr.segment_reduce.launches,
+                "segment_reduce_compact": sr.segment_reduce_compact.launches}
 
     def event_ms(fn):
         """One CUDA-event timing of fn (for the slow plain versions)."""
@@ -402,23 +651,7 @@ def main():
     model = bench_scene(gt, torch, dev)
     cam = gt.Camera.from_fovy(FULL_W, FULL_H, 50.0, np.eye(4))
     full, full_rays = binned_for(gt, model, cam, base)
-
-    def tile_slice(scene, rays_t):
-        """The 512 consecutive tiles around the busiest one, with their
-        chunk range."""
-        start, count = pf.tile_chunk_runs(scene.tile_counts,
-                                          scene.chunks.shape[0],
-                                          base.chunk_size)
-        t0 = min(int(torch.argmax(scene.tile_counts)) // 512 * 512,
-                 rays_t.shape[0] - 512)
-        c0 = int(start[t0])
-        c1 = int(start[t0 + 511]) + int(count[t0 + 511])
-        return t0, c0, c1
-
-    t0, c0, c1 = tile_slice(full, full_rays)
-    part = full._replace(chunks=full.chunks[c0:c1].contiguous(),
-                         tile_counts=full.tile_counts[t0:t0 + 512].contiguous())
-    part_rays = full_rays[t0:t0 + 512].contiguous()
+    part, part_rays = slice_scene(full, full_rays, base.chunk_size)
     with torch.no_grad():
         got = pf.forward_dispatch(part, part_rays, base, "cuda")
         want = pf.forward_dispatch(part, part_rays, base, "torch")
@@ -454,8 +687,9 @@ def main():
         fail(f"mean hits/ray {mean_hits:.2f} < 15")
     if serve_launches["tile_forward"] < 1:
         fail("the serving path did not launch the tile kernel")
-    if serve_launches["tile_forward_residual"] or \
-            serve_launches["tile_backward"]:
+    if any(serve_launches[k] for k in ("tile_forward_residual",
+                                       "tile_backward", "segment_reduce",
+                                       "segment_reduce_compact")):
         fail(f"a serving frame launched training kernels: {serve_launches}")
 
     rays_n = FULL_W * FULL_H
@@ -482,6 +716,35 @@ def main():
         del plain
     torch.cuda.synchronize()
 
+    # ---- 3b. banded serving of the full-width frame ------------------------
+    t0 = time.time()
+    reset_launches()
+    with torch.no_grad():
+        compare_frames(bd.render_image_banded(model, cam, 4, base, device=dev),
+                       out, "4_stride")
+        sorted_model = model.sorted_for_camera(cam, base)
+        want_sorted = TiledRenderer(FULL_W, FULL_H, base, device=dev).render(
+            sorted_model, cam)
+        compare_frames(bd.render_image_banded(sorted_model, cam, 4, base,
+                                              span=True, device=dev),
+                       want_sorted, "4_span_sorted")
+        balanced = bd.BandedRenderer(FULL_W, FULL_H, 2, base, span=True,
+                                     balance=True, device=dev)
+        balanced.bind(sorted_model, cam)
+        compare_frames(balanced.render_bound(sorted_model), want_sorted,
+                       "2_balanced_sorted")
+    torch.cuda.synchronize()
+    band_launches = launches()
+    print(json.dumps({"phase": "banded_serving", "launches": band_launches,
+                      "band_specs": balanced.band_specs,
+                      "seconds": time.time() - t0}), flush=True)
+    if band_launches["tile_forward"] < 4 + 4 + 2 or any(
+            band_launches[k] for k in ("tile_forward_residual",
+                                       "tile_backward",
+                                       "segment_reduce_compact")):
+        fail(f"banded serving launches: {band_launches}")
+    del sorted_model, want_sorted, balanced
+
     with tempfile.TemporaryDirectory() as tmp:
         # ---- 4. the CLI on a PLY -----------------------------------------
         ply = os.path.join(tmp, "bench_scene.ply")
@@ -504,6 +767,40 @@ def main():
                 fail(f"{f}: shape {img.shape}, max {img.max()}")
         print(json.dumps({"phase": "cli_render", "frames": len(pngs),
                           "seconds": time.time() - t0}), flush=True)
+        # the same frames in 4 stride bands: the same 8-bit images
+        band_dir = os.path.join(tmp, "renders_banded")
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", PKG, "render", "--ply", ply, "--width",
+             str(FULL_W), "--height", str(FULL_H), "--frames", "4",
+             "--bands", "4", "--out", band_dir], cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"CLI render --bands failed:\n{proc.stdout}\n{proc.stderr}")
+        png_diff = max(int(np.abs(
+            gt.io.load_png(os.path.join(band_dir, f)).astype(np.int64)
+            - gt.io.load_png(os.path.join(out_dir, f)).astype(np.int64))
+            .max()) for f in pngs)
+        print(json.dumps({"phase": "cli_render_bands", "frames": len(pngs),
+                          "max_level_diff": png_diff,
+                          "seconds": time.time() - t0}), flush=True)
+        if png_diff != 0:
+            fail(f"CLI render --bands 4 differs from the unbanded renders by "
+                 f"{png_diff} levels")
+        t0 = time.time()
+        fps_file = os.path.join(tmp, "fps_bands.txt")
+        proc = subprocess.run(
+            [sys.executable, "-m", PKG, "benchmark", "--ply", ply, "--width",
+             str(FULL_W), "--height", str(FULL_H), "--bands", "4", "-bw",
+             "0.5", "-br", "2", "-bt", fps_file], cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0 or "rays/s" not in proc.stdout or \
+                not os.path.exists(fps_file):
+            fail(f"CLI benchmark --bands failed:\n{proc.stdout}\n"
+                 f"{proc.stderr}")
+        print(json.dumps({"phase": "cli_benchmark_bands", "output": [
+            line for line in proc.stdout.splitlines() if "/s" in line],
+            "seconds": time.time() - t0}), flush=True)
 
         # ---- 5. the full-width training window ---------------------------
         trainer_r = TiledRenderer(FULL_W, FULL_H, base, device=dev)
@@ -570,6 +867,8 @@ def main():
             if train_launches[k] < TRAIN_K:
                 fail(f"{k} launched {train_launches[k]} < {TRAIN_K} times in "
                      f"the training window")
+        if train_launches["segment_reduce_compact"]:
+            fail("the unbanded training window launched K4")
         window_ms, _ = event_ms(lambda: train_window(train_model))
         report("train_step_ms", window_ms / TRAIN_K)
 
@@ -703,7 +1002,7 @@ def main():
                 (r.render_bound(m)["rgb"] - TRAIN_TARGET) ** 2).mean())
 
         compare_grads("3000_gaussians_128px", small_grads)
-        st0, sc0, sc1 = tile_slice(scene_t, full_rays)
+        st0, sc0, sc1 = tile_slice(scene_t, full_rays, base.chunk_size)
         slice_rays = full_rays[st0:st0 + 512].contiguous()
 
         def slice_grads(impl):
@@ -740,8 +1039,74 @@ def main():
                 loaded.num_gaussians != FULL_N:
             fail(f"CLI train: psnr {psnrs}, {loaded.num_gaussians} "
                  f"gaussians\n{proc.stdout}")
+        # banded: 2 span bands on the y-sorted scene
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", PKG, "train", "--ply", ply, "--width",
+             str(FULL_W), "--height", str(FULL_H), "--frames", "4",
+             "--steps", "3", "--batch", "1", "--bands", "2", "--span-bands",
+             "--sort-scene", "--images-dir", out_dir, "--out", tuned],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"CLI train --bands failed:\n{proc.stdout}\n{proc.stderr}")
+        psnrs = [float(line.split("psnr")[1]) for line in
+                 proc.stdout.splitlines() if "psnr" in line]
+        loaded = gt.GaussianModel.from_ply(tuned, device="cpu")
+        print(json.dumps({"phase": "cli_train_bands", "psnr": psnrs,
+                          "gaussians": loaded.num_gaussians,
+                          "seconds": time.time() - t0}), flush=True)
+        if not psnrs or not all(np.isfinite(psnrs)) or \
+                loaded.num_gaussians != FULL_N:
+            fail(f"CLI train --bands: psnr {psnrs}, {loaded.num_gaussians} "
+                 f"gaussians\n{proc.stdout}")
+    del model, full, renderer, trainer_r, train_model, topo, scene_t
+    del chunks_t, acc_t, t_in, bar, captured, bar_flat, out, acc
+    torch.cuda.empty_cache()
 
-    # ---- 9. kernels ------------------------------------------------------
+    # ---- 9. K4 and the banded step on a small scene -----------------------
+    t0 = time.time()
+    small_sorted = small.sorted_for_camera(cam128, base)
+    span128 = bd.BandedRenderer(128, 128, 2, base, span=True, device=dev)
+    k4_errs = []
+    for b, topo_b in enumerate(span128.bind(small_sorted, cam128)):
+        g = torch.Generator(device=dev).manual_seed(20 + b)
+        bar_b = torch.randn((topo_b.pair_gauss.shape[0], 64), generator=g,
+                            device=dev)
+        k4_errs.append(check_compact_reduce(
+            torch, sr, bar_b, topo_b.red,
+            f"3000_gaussians_128px_span_band{b}")[0]["max_abs_err"])
+
+    def banded_grads(span, balance, remat):
+        m = small_sorted if span else small
+        held = bd.BandedRenderer(128, 128, 2, base, remat=remat, span=span,
+                                 balance=balance, device=dev)
+        held.bind(m, cam128)
+
+        def grads(impl):
+            r = bd.BandedRenderer(128, 128, 2, base, impl=impl, remat=remat,
+                                  span=span, balance=balance, device=dev)
+            r._bound = held._bound
+            return leaf_grads(m, lambda mm: (
+                (r.render_bound(mm)["rgb"] - TRAIN_TARGET) ** 2).mean())
+        return grads
+
+    for label, args in (("2_stride_full", (False, False, "full")),
+                        ("2_span_gather", (True, False, "gather")),
+                        ("2_balanced_none", (True, True, "none"))):
+        compare_grads(f"3000_gaussians_128px_banded_{label}",
+                      banded_grads(*args))
+    print(json.dumps({"phase": "banded_small", "seconds": time.time() - t0}),
+          flush=True)
+
+    # ---- 10. the garden-scale banded training window ----------------------
+    (k4_ms, k4_plain_ms, k4_lib_ms, k4_b_ms, k4_b_by, k4_err,
+     garden_launches, *garden_errs) = garden_window(
+        gt, torch, dev, bd, binning, pf, sr, rows64_from_model,
+        reset_launches, launches, event_ms, name, power)
+    k4_err = max(k4_errs + [k4_err])
+    add_training_errs(garden_errs)
+
+    # ---- 11. kernels -----------------------------------------------------
     def entry(kname, src, replaces, n_launch, err, ms, p_ms, bnd, lib):
         return {"name": kname, "route": "cuda",
                 "source": f"{PKG}/csrc/{src}", "replaces": replaces,
@@ -765,6 +1130,10 @@ def main():
               "3dgvrt_lightfield_tpu/render/segreduce.py:129",
               train_launches["segment_reduce"], k3_err, k3_ms, k3_plain_ms,
               (k3_b_ms, k3_b_by), k3_lib_ms),
+        entry("segment_reduce_compact", "segment_reduce_compact.cu",
+              "3dgvrt_lightfield_tpu/render/segreduce.py:278",
+              garden_launches["segment_reduce_compact"], k4_err, k4_ms,
+              k4_plain_ms, (k4_b_ms, k4_b_by), k4_lib_ms),
     ]}), flush=True)
     print(json.dumps({"phase": "done", "seconds_after_build":
                       time.time() - t_all}), flush=True)

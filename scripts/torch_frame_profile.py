@@ -10,13 +10,17 @@ scene) and prints JSON lines:
     Training (--train): the topology refresh with its reduce plan,
     rows64_from_model forward and backward, the gather, K1 with its
     residual, the loss and its cotangent, K2, K3, and the whole step of
-    chip_smoke.py's training window (forward, backward, SGD);
+    chip_smoke.py's training window (forward, backward, SGD).  The
+    garden-scale banded step (--garden, chip_smoke.py's 5M window): per band
+    the gather, K1 with its residual, K2, K4 and the expansion back to the
+    table, then rows64_from_model forward and backward, Adam, and the whole
+    Trainer.step;
   * the device-busy share from a torch.profiler trace of 3 frames or steps
     (kernel time over wall time) and the top CUDA kernels by device time.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 scripts/torch_frame_profile.py [--train]
+    python3 scripts/torch_frame_profile.py [--train | --garden]
 """
 
 import json
@@ -125,6 +129,75 @@ def train_stages(torch, card, model, cam, cfg):
     profile(torch, card, step, "train_step")
 
 
+def garden_stages(torch, card, dev):
+    """Stage split of chip_smoke.py's garden-scale banded training step."""
+    import chip_smoke
+    import gvrt_tpu_torch as gt
+    from gvrt_tpu_torch.render import binning
+    from gvrt_tpu_torch.render import pallas_forward as pf
+    from gvrt_tpu_torch.render import pallas_vjp as pv
+    from gvrt_tpu_torch.render import param_grads as pg
+    from gvrt_tpu_torch.render import segreduce as sr
+    from gvrt_tpu_torch.render.rows_vjp import rows64_from_model
+
+    cfg = gt.DEFAULT_CONFIG
+    w, h, nb = chip_smoke.FULL_W, chip_smoke.FULL_H, chip_smoke.GARDEN_BANDS
+    model, cam = chip_smoke.garden_scene(gt, torch, dev)
+    model = model.sorted_for_camera(cam, cfg)
+    trainer = gt.train.Trainer(w, h, cfg, gt.train.TrainConfig(
+        span_bands=True), n_bands=nb, device=dev)
+    topos = trainer.bind(model, cam)
+    state = trainer.init(model)
+    target = torch.full((h, w, 3), chip_smoke.TRAIN_TARGET, device=dev)
+    rays = binning.band_rays(cam, cfg, nb, dev, mode="contig")
+    rows = rows64_from_model(model, cfg)
+    stages = {
+        "rows64_from_model": lambda: rows64_from_model(model, cfg),
+        "rows64_backward": lambda: torch.autograd.grad(
+            rows, model.leaves(), torch.ones_like(rows), retain_graph=True),
+    }
+    for b, topo in enumerate(topos):
+        with torch.no_grad():
+            chunks = binning.gather_from_rows(rows, topo, cfg, "cuda")
+            acc, t_in = pf.tile_forward_residual(chunks, rays[b],
+                                                 topo.tile_counts, cfg)
+            bar = torch.zeros_like(acc)
+            bar[:, 0:3] = torch.sign(acc[:, 0:3] - 0.3) / (w * h * 3)
+            bar_flat = pv.tile_backward(chunks, rays[b], topo.tile_counts,
+                                        t_in, bar, cfg)[0].reshape(-1, 64)
+        n_groups = topo.red.out_shape.shape[0]
+        stages.update({
+            f"band{b}_gather": lambda topo=topo: binning.gather_from_rows(
+                rows.detach(), topo, cfg, "cuda"),
+            f"band{b}_tile_forward_residual": lambda b=b, c=chunks, t=topo:
+                pf.tile_forward_residual(c, rays[b], t.tile_counts, cfg),
+            f"band{b}_tile_backward": lambda b=b, c=chunks, t=topo, ti=t_in,
+                ba=bar: pv.tile_backward(c, rays[b], t.tile_counts, ti, ba,
+                                         cfg),
+            f"band{b}_segment_reduce_compact": lambda f=bar_flat, t=topo,
+                n=n_groups: sr.segment_reduce_compact(f, t.red, n),
+            f"band{b}_compact_reduce_and_expansion": lambda f=bar_flat,
+                t=topo: pg._bwd_segreduce_compact(rows.shape[0], t.red, f,
+                                                  "cuda"),
+        })
+
+    def adam():
+        for p in model.leaves():
+            p.grad = torch.zeros_like(p)
+        state[1].step()
+
+    def step():
+        trainer.step(state, cam, target)
+
+    stages.update({"adam_step": adam, "trainer_step": step})
+    for name, fn in stages.items():
+        print(json.dumps({"stage": name, "ms": chip_smoke.cuda_ms(fn),
+                          "card": card}), flush=True)
+    print(json.dumps({"peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "card": card}), flush=True)
+    profile(torch, card, step, "garden_trainer_step")
+
+
 def main():
     import numpy as np
     import torch
@@ -140,6 +213,8 @@ def main():
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
+    if "--garden" in sys.argv[1:]:
+        return garden_stages(torch, card, dev)
     cfg = gt.DEFAULT_CONFIG
     w, h = chip_smoke.FULL_W, chip_smoke.FULL_H
     model = chip_smoke.bench_scene(gt, torch, dev)

@@ -75,6 +75,40 @@ def test_chunk_core_bwd_matches_jax(prod, degree, ray_grads):
         assert np.abs(np.asarray(want[2])[8:]).max() > 0
 
 
+@pytest.mark.parametrize("prod", [True, False], ids=["prod", "logspace"])
+def test_chunk_core_bwd_zero_past_the_last_active_pair(prod):
+    """Once a ray's transmittance is below min_transmittance its later pairs
+    add nothing, so a Gaussian that only such pairs reach has exactly zero
+    cotangents, as K2's reverse walk gives them.  Over a batch of tiles the
+    plain version's suffix sums (a total minus a prefix sum) once left a
+    rounding residue there, which Adam's first step (eps 1e-15) turned into
+    a full learning-rate update."""
+    cfg = g3.DEFAULT_CONFIG.replace(transmittance_prod=prod)
+    rows, rays = _rows_and_rays()
+    rng = np.random.default_rng(0)
+    b, r = 4, rays.shape[2]
+    chunk = rows[rng.integers(0, rows.shape[0], (b, cfg.chunk_size))]
+    ray_blk = rays[8:8 + b]
+    # a low start: each ray's composite ends inside the chunk
+    t_in = rng.uniform(2e-3, 3e-2, (b, 1, r)).astype(np.float32)
+    bar_tout = rng.normal(size=(b, 1, r)).astype(np.float32)
+    bar_rgb = rng.normal(size=(b, 3, r)).astype(np.float32)
+    bar_dep = rng.normal(size=(b, 1, r)).astype(np.float32)
+    want = np.asarray(jax.vmap(
+        lambda *a: jtm.chunk_core_bwd(*a, cfg)[0])(*(jnp.asarray(x) for x in (
+            ray_blk, chunk, t_in, bar_tout, bar_rgb, bar_dep))))
+    got = ttm.chunk_core_bwd(*(torch.from_numpy(x) for x in (
+        ray_blk, chunk, t_in, bar_tout, bar_rgb, bar_dep)),
+        torch_cfg(cfg))[0].numpy()
+    # Gaussians composited on no ray (their SH cotangents are exactly zero)
+    # have exactly zero geometry cotangents too; JAX's total-minus-prefix
+    # sums leave a residue on some of them, so the mask comes from the SH
+    # columns
+    silent = (np.abs(want[..., 16:]).max(-1) == 0) & (chunk[..., 12] > 0)
+    assert 0 < silent.sum() < silent.size
+    np.testing.assert_array_equal(got[silent], 0.0)
+
+
 SCENES = {
     # name: (jax model kwargs, resolution, field of view, cfg)
     "t8_prod": (dict(n=120, seed=21, scale_range=(-2.3, -1.8)), 16, 60.0,

@@ -17,8 +17,12 @@ kernel tolerances):
     saturated and dead chunks exactly zero; two runs bit-identical.
   * K3: relative L2 error <= 1e-5 (another summation order); bit-identical
     across runs.
-  * The whole training step, kernels against plain versions: relative L2
-    <= 1e-4 per parameter group.
+  * K4: relative L2 error <= 1e-5; bit-identical across runs; every output
+    row defined after a NaN-poisoned allocator, the rows past the last live
+    compact id exactly zero.
+  * The whole training step, kernels against plain versions, unbanded and
+    banded (stride, span, balanced): relative L2 <= 1e-4 per parameter
+    group.
 """
 
 import os
@@ -31,6 +35,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import gvrt_tpu_torch as gt  # noqa: E402
+from gvrt_tpu_torch.render import banded as bd  # noqa: E402
 from gvrt_tpu_torch.render import binning  # noqa: E402
 from gvrt_tpu_torch.render import pallas_forward as pf  # noqa: E402
 from gvrt_tpu_torch.render import pallas_vjp as pv  # noqa: E402
@@ -271,6 +276,70 @@ def test_training_step_gradients_match_plain_path(cuda, name):
         loss.backward()
         grads[impl] = {k: getattr(model, k).grad.clone()
                        for k in gt.models.gaussians.LEAVES}
+    for k, want in grads["torch"].items():
+        assert float(want.abs().max()) > 0, k
+        assert _rel_l2(grads["cuda"][k], want) <= 1e-4, k
+
+
+def _banded_scene(cuda, n=3000, res=128):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    model = gt.random_gaussians(g, n, extent=0.8, device=cuda)
+    with torch.no_grad():
+        model.means[:, 2] -= 3.0
+    cam = gt.Camera.from_fovy(res, res, 60.0, np.eye(4))
+    return model.sorted_for_camera(cam, BASE), cam
+
+
+def test_compact_reduce_kernel_matches_plain(cuda):
+    model, cam = _banded_scene(cuda)
+    r = bd.BandedRenderer(128, 128, 2, BASE, span=True, device=cuda)
+    for b, topo in enumerate(r.bind(model, cam)):
+        red = topo.red
+        assert isinstance(red, sr.CompactReducePlan)
+        n_groups = red.out_shape.shape[0]
+        g = torch.Generator(device=cuda).manual_seed(30 + b)
+        bar_flat = torch.randn((topo.pair_gauss.shape[0], 64), generator=g,
+                               device=cuda)
+        torch.full((2 * n_groups * sr.GROUP * 64,), float("nan"),
+                   device=cuda)
+        before = sr.segment_reduce_compact.launches
+        got = sr.segment_reduce_compact(bar_flat, red, n_groups)
+        again = sr.segment_reduce_compact(bar_flat, red, n_groups)
+        want = sr.segment_reduce_compact_plain(bar_flat, red, n_groups)
+        torch.cuda.synchronize()
+        assert sr.segment_reduce_compact.launches == before + 2
+        assert torch.equal(got, again) and bool(got.isfinite().all())
+        assert _rel_l2(got, want) <= 1e-5
+        n_live = int(sr.compact_ids(red).clamp_max(n_groups * sr.GROUP)
+                     .unique().numel()) - 1
+        assert 0 < n_live < n_groups * sr.GROUP
+        assert bool((got[n_live:] == 0).all())
+
+
+@pytest.mark.parametrize("span,balance,remat",
+                         [(False, False, "full"), (True, False, "gather"),
+                          (True, True, "none")],
+                         ids=["stride_full", "span_gather", "balanced_none"])
+def test_banded_step_gradients_match_plain_path(cuda, span, balance, remat):
+    model, cam = _banded_scene(cuda, n=2000)
+    held = bd.BandedRenderer(128, 128, 2, BASE, remat=remat, span=span,
+                             balance=balance, device=cuda)
+    held.bind(model, cam)
+    grads, launches = {}, {}
+    for impl in ("cuda", "torch"):
+        r = bd.BandedRenderer(128, 128, 2, BASE, impl=impl, remat=remat,
+                              span=span, balance=balance, device=cuda)
+        r._bound = held._bound
+        model.zero_grad(set_to_none=True)
+        before = sr.segment_reduce_compact.launches
+        out = r.render_bound(model)
+        loss = ((out["rgb"] - 0.3) ** 2).mean() + 1e-2 * out["depth"].mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        launches[impl] = sr.segment_reduce_compact.launches - before
+        grads[impl] = {k: getattr(model, k).grad.clone()
+                       for k in gt.models.gaussians.LEAVES}
+    assert launches == {"cuda": 2, "torch": 0}
     for k, want in grads["torch"].items():
         assert float(want.abs().max()) > 0, k
         assert _rel_l2(grads["cuda"][k], want) <= 1e-4, k

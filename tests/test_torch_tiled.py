@@ -186,7 +186,8 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "import gvrt_tpu_torch.render.pallas_vjp, "
             "gvrt_tpu_torch.render.segreduce, "
             "gvrt_tpu_torch.render.param_grads, "
-            "gvrt_tpu_torch.render.rows_vjp, gvrt_tpu_torch.train.trainer, "
+            "gvrt_tpu_torch.render.rows_vjp, gvrt_tpu_torch.render.banded, "
+            "gvrt_tpu_torch.train.trainer, "
             "gvrt_tpu_torch.train.checkpoint, gvrt_tpu_torch.parallel, "
             "gvrt_tpu_torch.utils.metrics, gvrt_tpu_torch.app\n"
             "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
