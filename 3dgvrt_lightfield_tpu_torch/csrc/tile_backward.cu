@@ -40,23 +40,49 @@
 //   * The gate chain is `eval_pair` of tile_common.cuh, shared with K1 and
 //     rounded op by op, and t_before = T_in * P is formed as K1 forms it, so
 //     every accept and active gate falls in K2 as it fell in K1.
-//   * The per-gaussian column sums over rays are deterministic: a warp
-//     shuffle butterfly per column (skipped for a warp none of whose rays
-//     composited the gaussian), then the warps' partials, staged in shared
-//     memory for a batch of kBatch gaussians, summed in warp order.  No
-//     float atomics: two runs give the same bits.
+//   * The per-gaussian column sums over rays are a product on the tensor
+//     cores, as the TPU kernel contracts its SH columns on the MXU: each
+//     column is a per-pair coefficient times a per-ray feature, summed over
+//     rays, col[(a, f)] = sum_r A[a, r] F[r, f] with A = bar_pre (3),
+//     bar_gro (3), bar_grdu (3), bar_ae * resp and F = 16 SH basis values,
+//     o, d, 1.  The basis rows are staged in shared memory once per tile;
+//     per gaussian each lane writes its 10 coefficients (zero where its ray
+//     did not composite it) into its warp's staging rows, 8 lanes at a
+//     time, which turns "one lane per ray" into mma fragments with
+//     __syncwarp only, and the warp contracts its 32 rays in four k-steps of
+//     `mma.sync.m16n8k8.f32.tf32.tf32.f32`: basis x bar_pre, and
+//     [o d 1] x [bar_gro bar_ae bar_grdu] (column_sums).  One TF32 pass
+//     keeps ~3 digits, so every operand is split into TF32 hi + lo and the
+//     product is a_lo b_hi + a_hi b_lo + a_hi b_hi (3xTF32, ~f32 accuracy),
+//     accumulated in f32.  A warp none of whose rays composited the
+//     gaussian skips the product.  The warps' partials, staged in shared
+//     memory for a batch of kBatch gaussians, are summed in warp order.  The
+//     mma order is fixed and there are no float atomics: two runs give the
+//     same bits.
+//   * Shared memory, 112.5 KB at R = 256, G = 64 (two blocks per SM): chunk
+//     16 KB, exclusive state 64 KB, basis rows 16 KB, coefficient staging
+//     2.5 KB, warp partials 14 KB.  Every block barrier costs (H100,
+//     PERF.md: 3 gaussians per barrier pair 8.3 ms, 7 gaussians 7.9 ms, one
+//     block per SM 11.4 ms), so the coefficients are staged 8 rays per round
+//     (kStageRays) to leave room for kBatch = 7.  Staged rows are
+//     XOR-swizzled so the fragment loads hit distinct banks.
 //
 // Bound on this card: the work is data dependent.  For every pair the
 // forward recompute (~72 f32 operations, once per pass), and for every
 // composited pair ~360 more (SH radiance, the backward chain, 61 column
-// products and their sums); the bytes are the chunk rows of the visited
-// runs plus T_in, rays and outputs.  At the bench frame that is compute
-// bound.  This first version is simple: the shuffle reductions, the second
-// forward recompute and the unoverlapped chunk staging are where a faster
-// one would start (tensor-core column sums, cp.async staging).
+// products and their sums, counted as f32 operations whatever unit runs
+// them); the bytes are the chunk rows of the visited runs plus T_in, rays
+// and outputs.  At the bench frame that is compute bound.  Measured on an
+// H100 (PERF.md): the shuffle butterflies this product replaced were 25% of
+// K2; the second forward recompute, the barriers and the unoverlapped chunk
+// staging are what remains (pass-1 accept masks, cp.async/TMA staging).
 //
 // Numerics: IEEE division, expf/log1pf (no --use_fast_math); the gate chain
-// without FMA contraction; the backward chain itself with FMAs.
+// without FMA contraction; the backward chain itself with FMAs; the column
+// sums in 3xTF32 (per-column relative L2 ~1e-7 against the f32 plain
+// version on the H100).
+
+#include <cstdint>
 
 #include "tile_common.cuh"
 
@@ -67,16 +93,149 @@ using namespace gvrt;
 //: blocks after the tile blocks that zero the dead trailing chunks
 constexpr int kTailBlocks = 32;
 //: gaussians per reduction batch (warp partials staged in shared memory)
-constexpr int kBatch = 8;
+constexpr int kBatch = 7;
+//: rays of a warp whose coefficients are staged at a time (32 / kStageRays
+//: rounds per gaussian): smaller staging leaves room for a larger kBatch
+constexpr int kStageRays = 8;
 constexpr int kMaxThreads = 512;
-//: nonzero geometry columns: 9 M, 3 b, density
-constexpr int kGeomCols = 13;
+//: per-pair coefficients staged for the column product, in this order:
+//: bar_pre (3), bar_gro (3), bar_ae * resp (1), bar_grdu (3)
+constexpr int kCoefs = 10;
+constexpr int kCoefBgo = 3, kCoefBae = 6, kCoefBgu = 7;
+//: ray features staged per tile for the product: the 16 SH basis values
+constexpr int kFeat = 16;
 
-__device__ __forceinline__ float warp_sum(float v) {
+// XOR swizzles of staged rows (32 ray slots for the basis rows, kStageRays
+// for the coefficient rows): the fragment loads of 8 consecutive rows (one
+// per lane group) fall in distinct banks.
+__device__ __forceinline__ int swz(int row) { return (row & 7) << 2; }
+__device__ __forceinline__ int stage_swz(int row) {
+  return ((row / (32 / kStageRays)) & (kStageRays / 4 - 1)) << 2;
+}
+
+// cvt.rna.tf32.f32 in integer arithmetic (add half of the 13 dropped bits,
+// truncate: round to nearest, ties away from zero), so the compiler folds
+// the split of a constant
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo with both parts TF32 (lo holds the next 11 bits of x)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// d += A B in 3xTF32 (a_lo b_hi + a_hi b_lo + a_hi b_hi, small terms
+// first)
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], float a0, float a1,
+                                           float a2, float a3, float b0,
+                                           float b1) {
+  uint32_t ah[4], al[4], bh[2], bl[2];
+  split_tf32(a0, ah[0], al[0]);
+  split_tf32(a1, ah[1], al[1]);
+  split_tf32(a2, ah[2], al[2]);
+  split_tf32(a3, ah[3], al[3]);
+  split_tf32(b0, bh[0], bl[0]);
+  split_tf32(b1, bh[1], bl[1]);
+  mma_tf32(d, al[0], al[1], al[2], al[3], bh[0], bh[1]);
+  mma_tf32(d, ah[0], ah[1], ah[2], ah[3], bl[0], bl[1]);
+  mma_tf32(d, ah[0], ah[1], ah[2], ah[3], bh[0], bh[1]);
+}
+
+// The 61 nonzero parameter columns of one gaussian summed over the warp's
+// 32 rays, on the tensor cores, written to the warp's partial `pw` (64
+// floats; columns 13..15 zero).  `cf` is this lane's kCoefs coefficients
+// (zero where its ray did not composite the gaussian), `st` the warp's
+// kCoefs x kStageRays staging rows (filled by kStageRays lanes per round,
+// at least 64 floats), `fw` the warp's first ray slot of the staged
+// basis rows (row stride nthr), `ga` this lane's geometry-feature
+// fragments.  With gid = lane / 4 and tig = lane % 4 (the mma fragment
+// coordinates), per k-step s of 8 rays:
+//   C_sh  (16 x 8) += Basis (16 x 8 rays) x [bp0 bp1 bp2 0 ...] (8 rays x 8)
+//   C_geo (16 x 8) += [o0 o1 o2 d0 d1 d2 1 0; 0] x
+//                     [bgo0 bgo1 bgo2 bae bgu0 bgu1 bgu2 0]
+// so SH column 16 + 16c + j is C_sh[j][c], M[3i + j] is
+// C_geo[j][i] + C_geo[3 + j][4 + i], b[i] is -C_geo[6][i] and the density
+// column C_geo[6][3].
+__device__ __forceinline__ void column_sums(const float (&cf)[kCoefs],
+                                            float* st, const float* fw,
+                                            int nthr,
+                                            const float (&ga)[4][2],
+                                            float* pw, int lane) {
+  const int gid = lane >> 2, tig = lane & 3;
+  float csh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float cgeo[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  const int rg = gid + kCoefBgo;  // staged row of B_geo's column gid
+  const float* lo_row = fw + gid * nthr;
+  const float* hi_row = fw + (gid + 8) * nthr;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;  // the same bits in every lane (addition commutes)
+  for (int u = 0; u < 32 / kStageRays; ++u) {
+    if (lane / kStageRays == u) {
+      const int k = lane % kStageRays;
+#pragma unroll
+      for (int i = 0; i < kCoefs; ++i)
+        st[i * kStageRays + (k ^ stage_swz(i))] = cf[i];
+    }
+    __syncwarp();
+#pragma unroll
+    for (int sl = 0; sl < kStageRays / 8; ++sl) {
+      const int s = u * (kStageRays / 8) + sl;  // k-step of the warp's rays
+      const int k0 = 8 * s + tig, k1 = k0 + 4;
+      const int f0 = k0 ^ swz(gid), f1 = k1 ^ swz(gid);
+      const int l0 = 8 * sl + tig, l1 = l0 + 4;  // slots in this round
+      const float bsh0 =
+          gid < 3 ? st[gid * kStageRays + (l0 ^ stage_swz(gid))] : 0.0f;
+      const float bsh1 =
+          gid < 3 ? st[gid * kStageRays + (l1 ^ stage_swz(gid))] : 0.0f;
+      const float bgeo0 =
+          gid < 7 ? st[rg * kStageRays + (l0 ^ stage_swz(rg))] : 0.0f;
+      const float bgeo1 =
+          gid < 7 ? st[rg * kStageRays + (l1 ^ stage_swz(rg))] : 0.0f;
+      mma_3xtf32(csh, lo_row[f0], hi_row[f0], lo_row[f1], hi_row[f1], bsh0,
+                 bsh1);
+      mma_3xtf32(cgeo, ga[s][0], 0.0f, ga[s][1], 0.0f, bgeo0, bgeo1);
+    }
+    __syncwarp();  // every lane has read this round's B fragments
+  }
+  // SH columns straight from the accumulator fragment
+  const int c = 2 * tig;
+  if (c < 3) {
+    pw[kColSh + 16 * c + gid] = csh[0];
+    pw[kColSh + 16 * c + gid + 8] = csh[2];
+    if (c + 1 < 3) {
+      pw[kColSh + 16 * (c + 1) + gid] = csh[1];
+      pw[kColSh + 16 * (c + 1) + gid + 8] = csh[3];
+    }
+  }
+  // C_geo rows 0..7 through the staging rows, then the 13 columns
+  st[gid * 8 + c] = cgeo[0];
+  st[gid * 8 + c + 1] = cgeo[1];
+  __syncwarp();
+  if (lane < 16) {
+    float v = 0.0f;
+    if (lane < 9) {
+      const int i = lane / 3, j = lane % 3;
+      v = st[j * 8 + i] + st[(3 + j) * 8 + 4 + i];
+    } else if (lane < 12) {
+      v = -st[6 * 8 + lane - 9];
+    } else if (lane == 12) {
+      v = st[6 * 8 + 3];
+    }
+    pw[lane] = v;
+  }
+  __syncwarp();  // `st` is reused by the next gaussian
 }
 
 __device__ __forceinline__ void zero_rows(float* dst, int n) {
@@ -98,8 +257,11 @@ tile_backward_kernel(const float* __restrict__ chunks,
                      int num_chunks, int R, int G, Gates q) {
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);   // staged chunk, G x 64
+  const int nthr = blockDim.x;
   float* xs = sm + G * kCols;                    // exclusive state, G x R
-  float* part = xs + G * R;                      // nwarps x kBatch x 64
+  float* fs = xs + G * R;                        // basis rows, kFeat x nthr
+  float* stage = fs + kFeat * nthr;       // nwarps x kCoefs x kStageRays
+  float* part = stage + (nthr >> 5) * kCoefs * kStageRays;  // x kBatch x 64
   __shared__ int s_nlive;
 
   const int chunk_elems = G * kCols;
@@ -131,6 +293,27 @@ tile_backward_kernel(const float* __restrict__ chunks,
     bar_b = ba[2 * R];
     bar_dep = ba[3 * R];
     bar_T = ba[kAccT * R];
+  }
+  // the product's ray features: the basis rows staged once per tile (read
+  // after the first chunk's barrier), and the geometry features
+  // [o0 o1 o2 d0 d1 d2 1 0] (row lane / 4) of this lane's fragment rays
+#pragma unroll
+  for (int j = 0; j < kFeat; ++j) fs[j * nthr + (r ^ swz(j))] = ray.basis[j];
+  float ga[4][2];
+  {
+    const int m = lane >> 2;
+    const float* blk = rays + static_cast<size_t>(tile) * kRayRows * R;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = warp * 32 + 8 * s + (lane & 3) + 4 * h;
+        ga[s][h] = q >= R ? 0.0f
+                   : m < 6 ? blk[m * R + q]
+                   : m == 6 ? 1.0f
+                            : 0.0f;
+      }
+    }
   }
   float bo[3] = {0.0f, 0.0f, 0.0f}, bd[3] = {0.0f, 0.0f, 0.0f};
   float bbasis[16];
@@ -196,10 +379,9 @@ tile_backward_kernel(const float* __restrict__ chunks,
       const int gb0 = gb_end > kBatch ? gb_end - kBatch : 0;
       for (int g = gb_end - 1; g >= gb0; --g) {
         const float* p = sm + g * kCols;
-        float geo[kGeomCols];
+        float cf[kCoefs];  // zero unless this ray composited g
 #pragma unroll
-        for (int j = 0; j < kGeomCols; ++j) geo[j] = 0.0f;
-        float bp0 = 0.0f, bp1 = 0.0f, bp2 = 0.0f;
+        for (int j = 0; j < kCoefs; ++j) cf[j] = 0.0f;
         bool contrib = false;
         if (g < n_live) {
           const Pair e = eval_pair<DEG>(p, ray, q);
@@ -215,9 +397,9 @@ tile_backward_kernel(const float* __restrict__ chunks,
             const float bar_w = bar_dep * e.t + bar_r * fmaxf(rr, 0.0f) +
                                 bar_g * fmaxf(rg, 0.0f) +
                                 bar_b * fmaxf(rb, 0.0f);
-            bp0 = rr > 0.0f ? bar_r * w : 0.0f;
-            bp1 = rg > 0.0f ? bar_g * w : 0.0f;
-            bp2 = rb > 0.0f ? bar_b * w : 0.0f;
+            const float bp0 = rr > 0.0f ? bar_r * w : 0.0f;
+            const float bp1 = rg > 0.0f ? bar_g * w : 0.0f;
+            const float bp2 = rb > 0.0f ? bar_b * w : 0.0f;
             const float bar_t = bar_dep * w;
             float bar_ae = bar_w * t_before;
             const float bar_tb = bar_w * alpha;
@@ -235,7 +417,7 @@ tile_backward_kernel(const float* __restrict__ chunks,
             }
             const bool notclamped = e.ra <= q.max_alpha;
             const float bar_resp = notclamped ? bar_ae * p[kColDensity] : 0.0f;
-            geo[12] = notclamped ? bar_ae * e.resp : 0.0f;
+            cf[kCoefBae] = notclamped ? bar_ae * e.resp : 0.0f;
             const float bar_gd =
                 bar_resp * particle_response_grad<DEG>(e.gray, e.resp);
             const float bar_cc = bar_gd * e.inv_n2;
@@ -255,17 +437,15 @@ tile_backward_kernel(const float* __restrict__ chunks,
             const float bgo0 = bc1 * e.gu2 - bc2 * e.gu1 + bar_dog * e.gu0;
             const float bgo1 = -bc0 * e.gu2 + bc2 * e.gu0 + bar_dog * e.gu1;
             const float bgo2 = bc0 * e.gu1 - bc1 * e.gu0 + bar_dog * e.gu2;
-            const float bgo[3] = {bgo0, bgo1, bgo2};
-            const float bgu[3] = {bgu0, bgu1, bgu2};
-            const float o[3] = {ray.o0, ray.o1, ray.o2};
-            const float d[3] = {ray.d0, ray.d1, ray.d2};
-#pragma unroll
-            for (int i = 0; i < 3; ++i) {
-#pragma unroll
-              for (int j = 0; j < 3; ++j)
-                geo[3 * i + j] = bgo[i] * o[j] + bgu[i] * d[j];
-              geo[9 + i] = -bgo[i];
-            }
+            cf[0] = bp0;
+            cf[1] = bp1;
+            cf[2] = bp2;
+            cf[kCoefBgo] = bgo0;
+            cf[kCoefBgo + 1] = bgo1;
+            cf[kCoefBgo + 2] = bgo2;
+            cf[kCoefBgu] = bgu0;
+            cf[kCoefBgu + 1] = bgu1;
+            cf[kCoefBgu + 2] = bgu2;
             if (RAYG) {
 #pragma unroll
               for (int j = 0; j < 3; ++j) {
@@ -285,21 +465,8 @@ tile_backward_kernel(const float* __restrict__ chunks,
           pw[lane] = 0.0f;
           pw[lane + 32] = 0.0f;
         } else {
-#pragma unroll
-          for (int j = 0; j < kGeomCols; ++j) {
-            const float v = warp_sum(geo[j]);
-            if (lane == 0) pw[j] = v;
-          }
-          if (lane < 3) pw[kGeomCols + lane] = 0.0f;
-          const float bps[3] = {bp0, bp1, bp2};
-#pragma unroll
-          for (int c = 0; c < 3; ++c) {
-#pragma unroll
-            for (int j = 0; j < 16; ++j) {
-              const float v = warp_sum(bps[c] * ray.basis[j]);
-              if (lane == 0) pw[kColSh + 16 * c + j] = v;
-            }
-          }
+          column_sums(cf, stage + warp * kCoefs * kStageRays, fs + warp * 32,
+                      nthr, ga, pw, lane);
         }
       }
       __syncthreads();
@@ -367,12 +534,15 @@ int launch(bool prod, bool rayg, dim3 grid, int threads, size_t smem,
 
 }  // namespace
 
-// Shared memory K2 needs per block: the staged chunk, the per-pair state
-// and the warp partials.  The wrapper checks it against the card's limit.
+// Shared memory K2 needs per block: the staged chunk, the per-pair state,
+// the basis rows, the coefficient staging and the warp partials (115,200 B
+// at R = 256, G = 64: two blocks fit on an SM).  The wrapper checks it
+// against the card's limit.
 extern "C" int gvrt_tile_backward_smem(int R, int G) {
   const int threads = (R + 31) / 32 * 32;
   return static_cast<int>(sizeof(float)) *
-         (G * kCols + G * R + (threads / 32) * kBatch * kCols);
+         (G * kCols + G * R + kFeat * threads +
+          (threads / 32) * (kCoefs * kStageRays + kBatch * kCols));
 }
 
 // chunks (C, G, 64) f32, rays (num_tiles, 24, R) f32, tile_start and

@@ -16,7 +16,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      scene with empty tiles + dead trailing chunks + saturated tiles, and a
      512-tile slice of the full-width frame.  On each: K1 (forward), K1's
      residual variant (T_in) and K2 (the backward, with ray gradients on
-     two scenes), the latter two after a NaN-poisoned allocator;
+     two scenes; per column group and per column), the latter two after a
+     NaN-poisoned allocator;
   3. the full-width frame (1920x1088, 300k Gaussians, the scene of the
      JAX package's bench.py made from a torch.Generator) through
      TiledRenderer.plan + render under torch.no_grad() (serving: K1 without
@@ -49,7 +50,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      bands on the y-sorted model): generation, y-sort, plan and bind
      timed, then 10 Trainer.steps with launch counts, step time and peak
      memory; then K1's residual and K2 against their plain versions on
-     band 0's busiest 512 tiles, and K4 on the window's real per-slot
+     band 0's busiest 512 tiles, K1's residual and K2 timed at band 0's
+     full shapes beside their bounds, and K4 on the window's real per-slot
      cotangents, timed against its plain version and index_add_;
  11. one JSON line per kernel with its launches, error, time and bound;
  12. the last line: {"ok": true, "device": {...}}.
@@ -194,6 +196,20 @@ def rel_l2(got, want):
 #: bar_chunk column groups of the backward
 COL_GROUPS = {"M": slice(0, 9), "b": slice(9, 12), "density": slice(12, 13),
               "sh": slice(16, 64)}
+#: the 61 nonzero parameter columns
+COLUMNS = [c for c in range(64) if c not in (13, 14, 15)]
+
+
+def column_rel_l2(got, want):
+    """{column: relative L2} of each of the 61 parameter columns whose
+    plain norm is nonzero (a group's L2 would hide a small column mapped to
+    the wrong place)."""
+    g = got[..., COLUMNS].reshape(-1, len(COLUMNS))
+    w = want[..., COLUMNS].reshape(-1, len(COLUMNS))
+    norm = w.norm(dim=0)
+    rel = (g - w).norm(dim=0) / norm.clamp_min(1e-30)
+    return {c: float(e) for c, e, n in zip(COLUMNS, rel.tolist(),
+                                           norm.tolist()) if n > 0}
 
 
 def poison_allocator(torch, nbytes, device):
@@ -254,6 +270,7 @@ def check_training_kernels(torch, binned, rays, cfg, label, seed):
                    "max_abs": float((got[0][..., cols]
                                      - want[0][..., cols]).abs().max())}
             for name, cols in COL_GROUPS.items()}
+    cols = column_rel_l2(got[0], want[0])
     if cfg.ray_gradients:
         errs["rays"] = {"rel_l2": rel_l2(got[1], want[1]),
                         "max_abs": float((got[1] - want[1]).abs().max())}
@@ -269,13 +286,17 @@ def check_training_kernels(torch, binned, rays, cfg, label, seed):
                       "ray_gradients": cfg.ray_gradients,
                       "t_in_frac_within_1e-5": tin_frac,
                       "t_in_finite": tin_finite, "backward": errs,
+                      "columns_checked": len(cols),
+                      "column_rel_l2_max": max(cols.values(), default=0.0),
                       "skipped_chunks": int(skipped.sum()),
                       "skipped_blocks_zero": zero_ok, "finite": finite,
                       "bit_identical_runs": same_bits}), flush=True)
     if tin_frac < 0.9999 or not tin_finite:
         fail(f"K1's residual disagrees with its plain version on {label}")
-    if max(e["rel_l2"] for e in errs.values()) > 1e-4:
-        fail(f"K2 disagrees with its plain version on {label}")
+    if max(e["rel_l2"] for e in errs.values()) > 1e-4 or not cols or \
+            max(cols.values()) > 1e-4:
+        fail(f"K2 disagrees with its plain version on {label}: "
+             f"{ {c: e for c, e in cols.items() if e > 1e-4} }")
     if not (zero_ok and finite and same_bits):
         fail(f"K2 on {label}: zero blocks {zero_ok}, finite {finite}, "
              f"bit-identical {same_bits}")
@@ -519,6 +540,8 @@ def garden_window(gt, torch, dev, bd, binning, pf, sr, rows64_from_model,
     tin_err, k2_err = check_training_kernels(
         torch, part, part_rays, base, "garden_band0_512_tiles", 15)
     del part, part_rays
+    garden_kernel_times(torch, pf, chunks.detach(), rays, topo, base, name,
+                        power)
     check, idx, vals, lib = check_compact_reduce(torch, sr, bar, topo.red,
                                                  "garden_window_band0")
     n_groups = topo.red.out_shape.shape[0]
@@ -539,6 +562,35 @@ def garden_window(gt, torch, dev, bd, binning, pf, sr, rows64_from_model,
                       "seconds": time.time() - t_phase}), flush=True)
     return (k4_ms, k4_plain_ms, k4_lib_ms, k4_b_ms, k4_b_by,
             check["max_abs_err"], window_launches, tin_err, k2_err)
+
+
+def garden_kernel_times(torch, pf, chunks, rays, topo, cfg, name, power):
+    """K1's residual variant and K2 at band 0's full shapes (CUDA-event
+    medians, as cuda_ms), each beside its bound from this band's chunk runs
+    and hit counts; K2 takes the cotangent of the window's L1 loss."""
+    from gvrt_tpu_torch.render import binning
+    from gvrt_tpu_torch.render import pallas_vjp as pv
+    scene = binning.binned_scene(chunks, topo)
+    counts = topo.tile_counts
+    with torch.no_grad():
+        res_ms = cuda_ms(lambda: pf.tile_forward_residual(chunks, rays,
+                                                          counts, cfg))
+        acc, t_in = pf.tile_forward_residual(chunks, rays, counts, cfg)
+        fixed = pf._background_fix(acc, counts)
+        bar = torch.zeros_like(acc)
+        bar[:, 0:3] = torch.where((counts > 0)[:, None, None], torch.sign(
+            fixed[:, 0:3] - TRAIN_TARGET) / (FULL_W * FULL_H * 3), 0.0)
+        k2_ms = cuda_ms(lambda: pv.tile_backward(chunks, rays, counts, t_in,
+                                                 bar, cfg))
+    res_b = bound_ms(scene, rays, acc, cfg, extra_bytes=t_in.numel() * 4)
+    k2_b = bound_bwd_ms(scene, rays, acc, cfg)
+    for metric, ms, (b_ms, b_by) in (
+            ("tile_forward_residual_garden_ms", res_ms, res_b),
+            ("tile_backward_garden_ms", k2_ms, k2_b)):
+        print(json.dumps({"metric": metric, "ms": ms, "bound_ms": b_ms,
+                          "bound_by": b_by, "chunks": int(chunks.shape[0]),
+                          "tiles": int(rays.shape[0]), "card": name,
+                          "power_limit": power}), flush=True)
 
 
 def main():
@@ -909,11 +961,14 @@ def main():
             report("tile_backward_plain_ms", k2_plain_ms)
             k2_full = {grp: rel_l2(bar_k2[..., cols], bar_p[..., cols])
                        for grp, cols in COL_GROUPS.items()}
+            k2_cols = column_rel_l2(bar_k2, bar_p)
             k2_err = float((bar_k2 - bar_p).abs().max())
             print(json.dumps({"phase": "tile_backward_full_width",
-                              "rel_l2": k2_full, "max_abs_err": k2_err}),
-                  flush=True)
-            if max(k2_full.values()) > 1e-4:
+                              "rel_l2": k2_full,
+                              "columns_checked": len(k2_cols),
+                              "column_rel_l2_max": max(k2_cols.values()),
+                              "max_abs_err": k2_err}), flush=True)
+            if max(k2_full.values()) > 1e-4 or max(k2_cols.values()) > 1e-4:
                 fail("K2 disagrees with its plain version at full width")
             k2_b_ms, k2_b_by = bound_bwd_ms(scene_t, full_rays, acc_t, base)
             del bar_p
