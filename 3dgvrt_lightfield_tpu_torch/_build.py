@@ -29,8 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "tile_forward": {
-        "gvrt_tile_forward": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _F, _F, _F, _F, _I, _P], ctypes.c_int),
+        "gvrt_tile_forward": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _F, _F, _F, _F, _F, _I, _P],
+                              ctypes.c_int),
     },
     "tile_backward": {
         "gvrt_tile_backward": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -103,22 +103,43 @@ struct Pair {
   bool accept;
 };
 
-template <int DEG>
-__device__ __forceinline__ Pair eval_pair(const float* p, const Ray& ray,
-                                          const Gates& q) {
-  Pair e;
-  e.gro0 = sub(dot3(p[0], p[1], p[2], ray.o0, ray.o1, ray.o2), p[kColB + 0]);
-  e.gro1 = sub(dot3(p[3], p[4], p[5], ray.o0, ray.o1, ray.o2), p[kColB + 1]);
-  e.gro2 = sub(dot3(p[6], p[7], p[8], ray.o0, ray.o1, ray.o2), p[kColB + 2]);
+// The chain in three parts, each in the op order of the plain version:
+//   pair_origin: gro = M o - b, the local-frame origin; it depends on the
+//     ray only through o, so rays with one origin share it;
+//   pair_prefix: grdu, |grdu|^2, the cross product grdu x gro and its
+//     squared norm cc, the numerator of the gray distance;
+//   pair_tail: the division, gray distance, response, alpha, depth and the
+//     accept gates.
+// Every op is rounded on its own, so the parts give the bits of the chain
+// in one piece wherever they run (K1 evaluates gro once per gaussian for a
+// tile whose rays share an origin, and the tail only where some ray of a
+// warp may accept).
+__device__ __forceinline__ void pair_origin(const float* p, float o0, float o1,
+                                            float o2, float& gro0,
+                                            float& gro1, float& gro2) {
+  gro0 = sub(dot3(p[0], p[1], p[2], o0, o1, o2), p[kColB + 0]);
+  gro1 = sub(dot3(p[3], p[4], p[5], o0, o1, o2), p[kColB + 1]);
+  gro2 = sub(dot3(p[6], p[7], p[8], o0, o1, o2), p[kColB + 2]);
+}
+
+// expects e.gro0..2
+__device__ __forceinline__ void pair_prefix(const float* p, const Ray& ray,
+                                            Pair& e) {
   e.gu0 = dot3(p[0], p[1], p[2], ray.d0, ray.d1, ray.d2);
   e.gu1 = dot3(p[3], p[4], p[5], ray.d0, ray.d1, ray.d2);
   e.gu2 = dot3(p[6], p[7], p[8], ray.d0, ray.d1, ray.d2);
   e.nrm2 = dot3(e.gu0, e.gu1, e.gu2, e.gu0, e.gu1, e.gu2);
-  e.inv_n2 = 1.0f / fmaxf(e.nrm2, 1e-20f);
   e.c0 = sub(mul(e.gu1, e.gro2), mul(e.gu2, e.gro1));
   e.c1 = sub(mul(e.gu2, e.gro0), mul(e.gu0, e.gro2));
   e.c2 = sub(mul(e.gu0, e.gro1), mul(e.gu1, e.gro0));
   e.cc = dot3(e.c0, e.c1, e.c2, e.c0, e.c1, e.c2);
+}
+
+// expects the fields of pair_origin and pair_prefix
+template <int DEG>
+__device__ __forceinline__ void pair_tail(const float* p, const Ray& ray,
+                                          const Gates& q, Pair& e) {
+  e.inv_n2 = 1.0f / fmaxf(e.nrm2, 1e-20f);
   e.gray = mul(e.cc, e.inv_n2);
   e.resp = particle_response<DEG>(e.gray);
   e.ra = e.resp * p[kColDensity];
@@ -127,6 +148,15 @@ __device__ __forceinline__ Pair eval_pair(const float* p, const Ray& ray,
   e.t = -e.dot_og * e.inv_n2;
   e.accept = e.resp > q.hit_min_response && e.alpha > q.alpha_min &&
              e.dot_og < 0.0f && e.t >= ray.tmin && e.t <= ray.tmax;
+}
+
+template <int DEG>
+__device__ __forceinline__ Pair eval_pair(const float* p, const Ray& ray,
+                                          const Gates& q) {
+  Pair e;
+  pair_origin(p, ray.o0, ray.o1, ray.o2, e.gro0, e.gro1, e.gro2);
+  pair_prefix(p, ray, e);
+  pair_tail<DEG>(p, ray, q, e);
   return e;
 }
 

@@ -17,16 +17,33 @@
 // Output per tile is the (8, R) block [r g b depth T hits 0 0].
 //
 // Design:
-//   * One block per tile, one thread per ray (blockDim = R <= 1024).  Chunks
-//     are laid out in tile order, so the wrapper hands each block the start
-//     and count of its tile's contiguous chunk run: trailing dead chunks are
-//     never visited, and no scalar-prefetch map or neighbour compare (TPU
+//   * One block per tile, one thread per ray (blockDim = R rounded up to
+//     whole warps, R <= 1024; lanes past R hold no ray).  Chunks are laid
+//     out in tile order, so the wrapper hands each block the start and count
+//     of its tile's contiguous chunk run and the tile's pair count: trailing
+//     dead chunks are never visited, the last chunk stops before its
+//     padding, and no scalar-prefetch map or neighbour compare (TPU
 //     devices) is needed.
 //   * Each chunk's G x 64 f32 block (16 KB at G = 64, 32 KB at G = 128) is
 //     staged in shared memory with coalesced 16-byte loads; every thread then
 //     reads the same row per pair, a shared-memory broadcast.
 //   * The ray's 24 rows (origin, direction, tmin, tmax, 16 SH basis values)
 //     and its accumulator stay in registers for the whole tile.
+//   * Shared origin: when every ray of the tile starts at ray 0's origin bit
+//     for bit (a pinhole frame; one __syncthreads_and at tile start), gro =
+//     M o - b is one value per gaussian, computed with the chain's own ops
+//     while the chunk is staged and read from shared memory by every ray.
+//     Other tiles compute it per ray.
+//   * Warp-wide early reject: almost every pair fails the response gate (a
+//     gaussian binned to a tile covers a few of its rays).  Each ray runs
+//     the chain's prefix up to cc = |grdu x gro|^2 and flags whether its ray
+//     is alive and cc <= D_hi * max(|grdu|^2, 1e-20), D_hi the response
+//     cutoff from the wrapper (float64, with a margin for the f32 roundings
+//     and expf).  When no lane of the warp is flagged (one vote.any), the
+//     warp skips the division, the response, the gates and the composite:
+//     none of its rays would accept the gaussian, so no output bit changes.
+//     Otherwise every live ray runs the tail exactly as before.  Dead rays
+//     stay in the loop and vote too; a warp whose rays all died leaves it.
 //   * Within a chunk, t_before = t_in * P with P the per-ray running
 //     product of (1 - alpha): the sequential form of the TPU's exclusive
 //     shift-tree cumprod, and the product the plain version's cumprod and
@@ -35,8 +52,7 @@
 //   * Before each chunk the block takes __syncthreads_or(T > min_T) and stops
 //     when no ray of the tile is alive: the `alive` predicate of the Pallas
 //     kernel.  Per-ray gating already zeroes later contributions, so the
-//     skip changes time only.  A ray whose own T fell to min_T skips its
-//     remaining pairs for the same reason.
+//     skip changes time only.
 //   * Every tile's block is written, tiles without chunks included (they get
 //     the background [0 0 0 0 1 0 0 0]): the wrapper allocates with
 //     torch.empty.
@@ -47,19 +63,27 @@
 //     extra blocks, 1 for the dead trailing chunks no run owns.  Every entry
 //     is defined, so the backward kernel K2 may read any of them.
 //
-// Bound on this card: about 200 f32 operations (48 of them the SH products)
-// and one exp per evaluated pair, against 470 MB of chunk reads for the whole
-// bench plan (cap_pad ~ 1.84M slots, ~4.7e8 pair evaluations at R = 256), so
-// the kernel is compute bound: ~1e11 f32 operations is ~1.4 ms at the H100's
-// 67 TFLOP/s, the bytes ~0.14 ms at 3.35 TB/s.  The design meets that bound
-// by keeping all per-pair operands in registers or broadcast shared memory
-// and by doing no work for dead trailing chunks, saturated tiles or rays.
-// Overlapping the chunk load with compute (cp.async / TMA double buffering)
-// and tensor-core SH products (wgmma) are for later work.
+// Bound on this card: chip_smoke.py bounds the kernel by the f32
+// operations this data needs (chain_counts): gro once per gaussian of a
+// shared-origin tile, 36 per real pair on a live ray (the prefix and the
+// cutoff test), the 20 of the tail only for pairs inside D_hi, and 116 per
+// composited pair, over the H100's 67 TFLOP/s; the chunk rows read once
+// at 3.35 TB/s come close (0.43 of the 0.51 ms at garden band 0, 0.14 of
+// 0.22 ms at 300k).  The pair loop is bound by instruction
+// issue: before the early reject a rejected pair issued ~116 instructions
+// (the IEEE division, expf, the gates); a (gaussian, warp) that every ray
+// rejects now issues ~59 (SASS of the default instance).  On an NVIDIA
+// H100 80GB HBM3 at 700 W (scripts/torch_k1_ab.py, chip_smoke.py) the warp
+// skipped ~79% of (gaussian, warp) pairs at garden band 0 and ~60% on the
+// 300k-Gaussian frame; the kernel ran at ~7x its bound at both (3.6 ms
+// against 0.51 ms, 1.56 ms against 0.22 ms), and the shared origin saved
+// 5-8%.  Staging the chunks (1.43 GB at garden band 0) costs ~1 ms.
+// Overlapping the chunk load with compute (cp.async / TMA double
+// buffering) and tensor-core SH products are for later work.
 //
 // Numerics: IEEE division and expf/log1pf (no --use_fast_math), the gate
-// chain without FMA contraction (`eval_pair` in tile_common.cuh, shared with
-// K2); the
+// chain without FMA contraction (`pair_origin`, `pair_prefix` and
+// `pair_tail` in tile_common.cuh, which make up K2's `eval_pair`); the
 // 1 / max(n2, 1e-20) clamp keeps padding pairs (identity frame, density 0)
 // finite.
 
@@ -72,6 +96,26 @@ using namespace gvrt;
 //: blocks after the tile blocks that write T_in = 1 for the dead trailing
 //: chunks (the residual variant only)
 constexpr int kTailBlocks = 32;
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// gro = M o - b of each of the chunk's G gaussians for the tile's one ray
+// origin: pair_origin's ops on the values stage_chunk copies, read from
+// device memory beside it, so the barrier after the staging covers both
+__device__ __forceinline__ void stage_origins(float4* dst, const float* chunks,
+                                              int chunk, int G,
+                                              const Ray& ray) {
+  const float* src = chunks + static_cast<size_t>(chunk) * G * kCols;
+  for (int i = threadIdx.x; i < G; i += blockDim.x) {
+    float4 v;
+    pair_origin(src + i * kCols, ray.o0, ray.o1, ray.o2, v.x, v.y, v.z);
+    v.w = 0.0f;
+    dst[i] = v;
+  }
+}
+
+__device__ __forceinline__ bool same_bits(float a, float b) {
+  return __float_as_uint(a) == __float_as_uint(b);
+}
 
 template <int DEG, bool PROD>
 __global__ void __launch_bounds__(1024)
@@ -79,14 +123,21 @@ tile_forward_kernel(const float* __restrict__ chunks,
                     const float* __restrict__ rays,
                     const int* __restrict__ tile_start,
                     const int* __restrict__ tile_nchunks,
+                    const int* __restrict__ tile_counts,
                     float* __restrict__ acc, float* __restrict__ t_in_out,
-                    int num_tiles, int num_chunks, int R, int G, Gates q) {
+                    int num_tiles, int num_chunks, int R, int G, Gates q,
+                    float d_hi) {
   extern __shared__ float4 smem4[];
   const float* sm = reinterpret_cast<const float*>(smem4);
+  float4* s_gro = smem4 + G * (kCols / 4);  // (G,) gro of the shared origin
+  // blockDim is R rounded up to whole warps: lanes r >= R hold no ray, stay
+  // dead and write nothing, so every vote takes the full warp
   const int r = threadIdx.x;
+  const bool real = r < R;
   if (static_cast<int>(blockIdx.x) >= num_tiles) {
     // residual variant: dead trailing chunks are in no run; they get the
     // transmittance of a tile no chunk reached, so T_in is defined memory
+    if (!real) return;
     const int dead0 = first_dead_chunk(tile_start, tile_nchunks, num_tiles,
                                        num_chunks);
     for (int c = dead0 + static_cast<int>(blockIdx.x) - num_tiles; c < num_chunks;
@@ -96,19 +147,27 @@ tile_forward_kernel(const float* __restrict__ chunks,
   }
   const int tile = static_cast<int>(blockIdx.x);
 
+  const float* blk = rays + static_cast<size_t>(tile) * kRayRows * R;
   Ray ray;
-  load_ray(rays + static_cast<size_t>(tile) * kRayRows * R, R, r, ray);
+  load_ray(blk, R, real ? r : 0, ray);
+  // a pinhole frame: every ray of the tile starts at ray 0's origin
+  const bool shared_origin = __syncthreads_and(
+      same_bits(ray.o0, blk[0]) && same_bits(ray.o1, blk[R]) &&
+      same_bits(ray.o2, blk[2 * R]));
 
-  float T = 1.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f, dep = 0.0f, hits = 0.0f;
+  float T = real ? 1.0f : 0.0f;
+  float cr = 0.0f, cg = 0.0f, cb = 0.0f, dep = 0.0f, hits = 0.0f;
   const int first = tile_start[tile];
   const int nc = tile_nchunks[tile];
+  const int count = tile_counts[tile];
 
   int k = 0;
   for (; k < nc; ++k) {
     // tile early-out; also the barrier before the block reuses the buffer
     if (!__syncthreads_or(T > q.min_t)) break;
-    if (t_in_out) t_in_out[static_cast<size_t>(first + k) * R + r] = T;
+    if (t_in_out && real) t_in_out[static_cast<size_t>(first + k) * R + r] = T;
     stage_chunk(smem4, chunks, first + k, G);
+    if (shared_origin) stage_origins(s_gro, chunks, first + k, G, ray);
     __syncthreads();
 
     // t_before = t_in * P with P the running exclusive product of
@@ -120,37 +179,61 @@ tile_forward_kernel(const float* __restrict__ chunks,
     float cs = 0.0f;          // log-space: running log1p sum
     float cs_act = 0.0f;      // the same over accepted, active pairs
     bool ray_alive = T > q.min_t;
-    for (int g = 0; g < G && ray_alive; ++g) {
+    // the last chunk of a run stops at the tile's count: padding slots
+    // (density 0) are never accepted
+    const int n_live = min(G, count - k * G);
+    for (int g = 0; g < n_live; ++g) {
       const float* p = sm + g * kCols;
-      const Pair e = eval_pair<DEG>(p, ray, q);
-      if (!e.accept) continue;  // alpha_eff = 0: T and the sums are unchanged
-
-      float t_before;
-      if (PROD) {
-        t_before = t_in * P;
+      Pair e;
+      if (shared_origin) {
+        const float4 o = s_gro[g];
+        e.gro0 = o.x;
+        e.gro1 = o.y;
+        e.gro2 = o.z;
       } else {
-        const float la = log1pf(-e.alpha);
-        t_before = t_in * expf(cs);
-        cs += la;
-        if (t_before > q.min_t) cs_act += la;
+        pair_origin(p, ray.o0, ray.o1, ray.o2, e.gro0, e.gro1, e.gro2);
       }
-      if (!(t_before > q.min_t)) {
-        ray_alive = false;  // T only falls: no later pair of this ray counts
-        continue;
-      }
-      const float w = e.alpha * t_before;
-      if (PROD) P = P * (1.0f - e.alpha);
+      pair_prefix(p, ray, e);
+      // Early reject: cc > D_hi |grdu|^2 puts the gray distance past the
+      // response cutoff (the wrapper's margin covers the roundings), so
+      // the pair fails the response gate.  When no lane of the warp is
+      // alive and below the cutoff, the warp skips the tail; a NaN falls
+      // to the full chain.  Dead lanes stay in the loop and vote too.
+      const bool maybe = ray_alive && !(e.cc > d_hi * fmaxf(e.nrm2, 1e-20f));
+      if (!__any_sync(kFullWarp, maybe)) continue;
+      if (ray_alive) {
+        pair_tail<DEG>(p, ray, q, e);
+        if (e.accept) {  // else alpha_eff = 0: T and the sums are unchanged
+          float t_before;
+          if (PROD) {
+            t_before = t_in * P;
+          } else {
+            const float la = log1pf(-e.alpha);
+            t_before = t_in * expf(cs);
+            cs += la;
+            if (t_before > q.min_t) cs_act += la;
+          }
+          if (!(t_before > q.min_t)) {
+            ray_alive = false;  // T only falls: no later pair counts
+          } else {
+            const float w = e.alpha * t_before;
+            if (PROD) P = P * (1.0f - e.alpha);
 
-      float rr, rg, rb;
-      sh_radiance(p, ray, rr, rg, rb);
-      cr += w * fmaxf(rr, 0.0f);
-      cg += w * fmaxf(rg, 0.0f);
-      cb += w * fmaxf(rb, 0.0f);
-      dep += w * e.t;
-      hits += 1.0f;
+            float rr, rg, rb;
+            sh_radiance(p, ray, rr, rg, rb);
+            cr += w * fmaxf(rr, 0.0f);
+            cg += w * fmaxf(rg, 0.0f);
+            cb += w * fmaxf(rb, 0.0f);
+            dep += w * e.t;
+            hits += 1.0f;
+          }
+        }
+      }
+      if (!__any_sync(kFullWarp, ray_alive)) break;  // the whole warp is done
     }
     T = PROD ? t_in * P : t_in * expf(cs_act);
   }
+  if (!real) return;
   if (t_in_out) {
     // chunks after the early-out keep the saturated T: K2 reads
     // max(T_in) <= min_T there and writes zero blocks
@@ -171,44 +254,52 @@ tile_forward_kernel(const float* __restrict__ chunks,
 template <int DEG>
 void launch(bool prod, dim3 grid, int R, size_t smem, cudaStream_t stream,
             const float* chunks, const float* rays, const int* tile_start,
-            const int* tile_nchunks, float* acc, float* t_in, int num_tiles,
-            int num_chunks, int G, Gates q) {
+            const int* tile_nchunks, const int* tile_counts, float* acc,
+            float* t_in, int num_tiles, int num_chunks, int G, Gates q,
+            float d_hi) {
+  const int threads = (R + 31) & ~31;  // whole warps
   if (prod) {
-    tile_forward_kernel<DEG, true><<<grid, R, smem, stream>>>(
-        chunks, rays, tile_start, tile_nchunks, acc, t_in, num_tiles,
-        num_chunks, R, G, q);
+    tile_forward_kernel<DEG, true><<<grid, threads, smem, stream>>>(
+        chunks, rays, tile_start, tile_nchunks, tile_counts, acc, t_in,
+        num_tiles, num_chunks, R, G, q, d_hi);
   } else {
-    tile_forward_kernel<DEG, false><<<grid, R, smem, stream>>>(
-        chunks, rays, tile_start, tile_nchunks, acc, t_in, num_tiles,
-        num_chunks, R, G, q);
+    tile_forward_kernel<DEG, false><<<grid, threads, smem, stream>>>(
+        chunks, rays, tile_start, tile_nchunks, tile_counts, acc, t_in,
+        num_tiles, num_chunks, R, G, q, d_hi);
   }
 }
 
 }  // namespace
 
-// chunks (C, G, 64) f32, rays (num_tiles, 24, R) f32, tile_start and
-// tile_nchunks (num_tiles,) i32, acc (num_tiles, 8, R) f32; t_in is null
+// chunks (C, G, 64) f32, rays (num_tiles, 24, R) f32, tile_start,
+// tile_nchunks and tile_counts (num_tiles,) i32 (each tile's chunk run and
+// its un-padded pair count), acc (num_tiles, 8, R) f32; t_in is null
 // (serving) or (C, R) f32, the transmittance at the start of every chunk
-// (training's residual).  All contiguous device memory.  Returns
-// cudaGetLastError() after the launch.
+// (training's residual).  All contiguous device memory.  response_cutoff
+// is D_hi, the gray distance past which no pair passes the response gate
+// (+inf: no early reject).  Returns cudaGetLastError() after the launch.
 extern "C" int gvrt_tile_forward(const float* chunks, const float* rays,
                                  const int* tile_start,
-                                 const int* tile_nchunks, float* acc,
+                                 const int* tile_nchunks,
+                                 const int* tile_counts, float* acc,
                                  float* t_in, int num_tiles, int num_chunks,
                                  int R, int G, int kernel_degree,
                                  float max_alpha, float alpha_min,
                                  float hit_min_response,
                                  float min_transmittance,
+                                 float response_cutoff,
                                  int transmittance_prod, void* stream) {
   if (num_tiles <= 0) return 0;
   const Gates q{max_alpha, alpha_min, hit_min_response, min_transmittance};
-  const size_t smem = static_cast<size_t>(G) * kCols * sizeof(float);
+  // the chunk and the gro of its G gaussians (shared-origin tiles)
+  const size_t smem = static_cast<size_t>(G) * (kCols + 4) * sizeof(float);
   const bool prod = transmittance_prod != 0;
   const dim3 grid(num_tiles + (t_in ? kTailBlocks : 0));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define GVRT_LAUNCH(D)                                                     \
   launch<D>(prod, grid, R, smem, s, chunks, rays, tile_start, tile_nchunks, \
-            acc, t_in, num_tiles, num_chunks, G, q)
+            tile_counts, acc, t_in, num_tiles, num_chunks, G, q,             \
+            response_cutoff)
   switch (kernel_degree) {
     case 8: GVRT_LAUNCH(8); break;
     case 5: GVRT_LAUNCH(5); break;

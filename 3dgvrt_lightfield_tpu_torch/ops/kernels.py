@@ -11,6 +11,8 @@ branch by branch (csrc/tile_common.cuh); keep them in step.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 # s-coefficients per kernel degree (gaussianfunctions.glsl:18-57).  For the
@@ -45,6 +47,22 @@ def particle_response(gray_dist: torch.Tensor, degree: int = 4) -> torch.Tensor:
                                0.0)
     # default: quadratic (true Gaussian)
     return torch.exp(-0.5 * gray_dist)
+
+
+#: gray-distance exponent of each degree's response (exp(s * gd**k))
+_RESPONSE_K = {8: 4.0, 5: 2.5, 4: 2.0, 3: 1.5, 1: 0.5}
+
+
+def gray_cutoff(min_response: float, degree: int = 4) -> float:
+    """The gray distance D at which `particle_response` falls to
+    min_response (0 < min_response < 1), in float64; every response
+    decreases in the gray distance, so a pair passes `resp > min_response`
+    only below D."""
+    if degree == 0:
+        return ((1.0 - min_response) / -_RESPONSE_S[0]) ** 2
+    s, k = ((_RESPONSE_S[degree], _RESPONSE_K[degree])
+            if degree in _RESPONSE_K else (-0.5, 1.0))
+    return (math.log(min_response) / s) ** (1.0 / k)
 
 
 def particle_response_grad(gray_dist: torch.Tensor, resp: torch.Tensor,

@@ -22,10 +22,13 @@ K2 in the backward); otherwise it launches K1 without the residual under
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .. import _build
 from ..config import RenderConfig
+from ..ops.kernels import gray_cutoff
 from .binning import BinnedScene
 from .tile_math import ACC_T, BACKGROUND, RAY_ROWS, chunk_update, init_acc
 
@@ -117,6 +120,24 @@ def _check_kernel_inputs(chunks, rays, tile_counts, cfg: RenderConfig):
         raise ValueError("chunks must be 16-byte aligned")
 
 
+def response_cutoff(kernel_degree: int, hit_min_response: float) -> float:
+    """D_hi: the gray distance past which the kernel skips a pair.
+
+    K1's warp-wide early reject skips a gaussian for a warp when every ray
+    has cc > D_hi * max(|grdu|^2, 1e-20), a gray distance of at least D_hi
+    up to three f32 roundings.  D_hi is the float64 cutoff of a response
+    2^-18 below the gate (the card's expf error, a margin of ulps),
+    inflated by 2^-13 (the roundings of the product, the division and the
+    response's own f32 chain), so a skipped pair's f32 response stays below
+    hit_min_response.  +inf (no skip) unless 0 < hit_min_response < 1.
+    """
+    h = float(hit_min_response)
+    if not 0.0 < h < 1.0:
+        return math.inf
+    return gray_cutoff(h * (1.0 - 2.0 ** -18), kernel_degree) * (
+        1.0 + 2.0 ** -13)
+
+
 def _launch_tile_forward(chunks, rays, tile_counts, cfg: RenderConfig,
                          residual: bool):
     _check_kernel_inputs(chunks, rays, tile_counts, cfg)
@@ -132,10 +153,11 @@ def _launch_tile_forward(chunks, rays, tile_counts, cfg: RenderConfig,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gvrt_tile_forward(
             chunks.data_ptr(), rays.data_ptr(), start.data_ptr(),
-            count.data_ptr(), acc.data_ptr(),
+            count.data_ptr(), tile_counts.data_ptr(), acc.data_ptr(),
             t_in.data_ptr() if residual else None, num_tiles, num_chunks, r,
             cfg.chunk_size, cfg.kernel_degree, cfg.max_alpha, cfg.alpha_min,
             cfg.hit_min_response, cfg.min_transmittance,
+            response_cutoff(cfg.kernel_degree, cfg.hit_min_response),
             int(cfg.transmittance_prod), stream)
     if err != 0:
         raise RuntimeError(f"tile_forward kernel launch failed: CUDA error "

@@ -50,10 +50,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      bands on the y-sorted model): generation, y-sort, plan and bind
      timed, then 10 Trainer.steps with launch counts, step time and peak
      memory; then K1's residual and K2 against their plain versions on
-     band 0's busiest 512 tiles, K1's residual and K2 timed at band 0's
-     full shapes beside their bounds, and K4 on the window's real per-slot
-     cotangents, timed against its plain version and index_add_;
- 11. one JSON line per kernel with its launches, error, time and bound;
+     band 0's busiest 512 tiles, K1 (serving and residual) and K2 timed
+     at band 0's full shapes beside their bounds, and K4 on the window's
+     real per-slot cotangents, timed against its plain version and
+     index_add_;
+ 11. one JSON line per kernel with its launches, error, time and bound
+     (K1 and K2 also at garden band 0's shapes; their bounds count the
+     gate chain as this run's data needs it, chain_counts, with the
+     earlier whole-chain count beside them as bound_ms_chain72);
  12. the last line: {"ok": true, "device": {...}}.
 
 It needs no network and stops every process it starts.  Without CUDA, or
@@ -75,9 +79,22 @@ PKG = "3dgvrt_lightfield_tpu_torch"
 #: cores and HBM3 bandwidth, at the full 700 W power limit
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-#: f32 operations of the tile kernel per evaluated (gaussian, ray) pair:
-#: frame 33, |grdu|^2 + reciprocal 7, cross + gray distance 15, response
-#: (2 mul + exp) 3, alpha 2, depth 7, gates 5 (FMA = 2)
+#: f32 operations of the gate chain per (gaussian, ray) pair, split as the
+#: kernels split it (csrc/tile_common.cuh; FMA = 2).  gro = M o - b, 3 x
+#: (dot3 5 + sub 1): once per gaussian of a tile whose rays share one
+#: origin, else once per pair
+OPS_ORIGIN = 18
+#: the prefix, per pair on a live ray: grdu 15, |grdu|^2 5, the cross
+#: product 9, cc 5, and the cutoff test cc > D_hi |grdu|^2 (mul, compare) 2
+OPS_PREFIX = 36
+#: the tail, per pair on a live ray inside the response cutoff D_hi: clamp +
+#: division 2, gray distance 1, response (2 mul + exp) 3, alpha 2, depth 7,
+#: gates 5
+OPS_TAIL = 20
+#: the whole chain for every real pair, the count of bounds before the
+#: recount (kept beside it as bound_ms_chain72, so times compare with
+#: earlier rows): frame 33, |grdu|^2 + reciprocal 7, cross + gray distance
+#: 15, response 3, alpha 2, depth 7, gates 5
 OPS_PER_PAIR = 72
 #: and per composited (accepted, active) pair: SH radiance 3 x 16 FMAs + 3
 #: offsets/clamps x 2, weight, T update, rgb/depth/hit accumulation
@@ -87,8 +104,10 @@ OPS_PER_HIT = 96 + 6 + 2 + 2 + 10
 #: bar_tin, suffix term, division) 14, response/density 9, gray distance,
 #: depth and cross products 17, the local-frame cotangents 42, the 13
 #: geometry columns 30, 48 SH column products and the 61 column sums over
-#: rays (FMA = 2).  Per real pair K2 recomputes the gate chain: OPS_PER_PAIR.
+#: rays (FMA = 2).  Per pair K2 needs the gate chain as K1 does.
 OPS_PER_HIT_BWD = 99 + 10 + 6 + 14 + 9 + 17 + 42 + 30 + 48 + 61
+#: visited chunks per batch of chain_counts
+COUNT_BATCH = 512
 #: the training window of bench.py: K steps per topology refresh, SGD lr
 TRAIN_K, TRAIN_LR, TRAIN_TARGET = 10, 1e-12, 0.3
 
@@ -151,20 +170,76 @@ def compare_acc(got, want, label):
     return max_abs
 
 
-def bound_ms(binned, rays, acc, cfg, extra_bytes=0):
-    """Least time for this call's work: bytes read/written once over HBM
-    bandwidth vs f32 operations over the f32 peak (the larger)."""
+def chain_counts(binned, rays, cfg):
+    """What this data needs of the gate chain, from the plain version: the
+    plain residual forward gives T at the start of every chunk (a ray at or
+    below min_transmittance needs nothing more) and the hit counts; every
+    visited chunk's real pairs on live rays are then counted, and of them
+    those inside the response cutoff D_hi (the kernels' own test, cc <= D_hi
+    max(|grdu|^2, 1e-20)), which alone need the chain's tail.  Returns
+    {origins, pairs, inside, hits, real_pairs}: origins counts gro
+    evaluations (one per gaussian for a tile whose rays share one origin,
+    one per pair otherwise); real_pairs is every real pair, live or not."""
+    import torch
+    from gvrt_tpu_torch.render import pallas_forward as pf
+    from gvrt_tpu_torch.render import pallas_vjp as pv
+    chunks, counts = binned.chunks, binned.tile_counts
+    acc, t_in = pv._forward_residual_plain(chunks, rays, counts, cfg)
+    d_hi = pf.response_cutoff(cfg.kernel_degree, cfg.hit_min_response)
+    g, r, dev = cfg.chunk_size, rays.shape[2], rays.device
+    start, count = pf.tile_chunk_runs(counts, chunks.shape[0], g)
+    count = count.long()
+    tile = torch.repeat_interleave(torch.arange(len(count), device=dev),
+                                   count)
+    k = torch.arange(len(tile), device=dev) - torch.repeat_interleave(
+        torch.cumsum(count, 0) - count, count)
+    cid = start.long()[tile] + k
+    n_real = (counts.long()[tile] - k * g).clamp(0, g)
+    shared = (rays[:, 0:3] == rays[:, 0:3, :1]).all(2).all(1)
+    n = {"origins": 0, "pairs": 0, "inside": 0}
+    for b in torch.arange(len(tile), device=dev).split(COUNT_BATCH):
+        p, ry = chunks[cid[b]], rays[tile[b]]
+        live = ((torch.arange(g, device=dev) < n_real[b, None])[..., None]
+                & (t_in[cid[b]] > cfg.min_transmittance)[:, None, :])
+        m = p[..., 0:9].reshape(-1, g, 3, 3)
+        gu = torch.einsum("bgij,bjr->bgir", m, ry[:, 3:6])
+        gro = torch.einsum("bgij,bjr->bgir", m, ry[:, 0:3]) \
+            - p[..., 9:12, None]
+        cc = (torch.linalg.cross(gu, gro, dim=2) ** 2).sum(2)
+        inside = ~(cc > d_hi * (gu * gu).sum(2).clamp_min(1e-20))
+        per_chunk = live.sum((1, 2))
+        n["origins"] += int(torch.where(
+            shared[tile[b]], n_real[b] * live.any(2).any(1), per_chunk).sum())
+        n["pairs"] += int(per_chunk.sum())
+        n["inside"] += int((live & inside).sum())
+    n["hits"] = float(acc[:, 5].sum())
+    n["real_pairs"] = int(counts.sum()) * r
+    return n
+
+
+def chain_ops(n, per_hit):
+    """(needed, chain72) f32 operations: the split chain on what the data
+    needs, and the whole chain on every real pair, each with per_hit per
+    composited pair."""
+    hits = n["hits"] * per_hit
+    return (n["origins"] * OPS_ORIGIN + n["pairs"] * OPS_PREFIX
+            + n["inside"] * OPS_TAIL + hits,
+            n["real_pairs"] * OPS_PER_PAIR + hits)
+
+
+def bound_ms(binned, rays, acc, cfg, n, extra_bytes=0):
+    """K1's least time for this call's work: bytes read/written once over
+    HBM bandwidth vs f32 operations over the f32 peak (the larger).  The
+    operations are what the data needs (chain_counts); returns (ms, bound
+    by, ms with the whole chain on every real pair)."""
     from gvrt_tpu_torch.render.pallas_forward import tile_chunk_runs
     _, count = tile_chunk_runs(binned.tile_counts, binned.chunks.shape[0],
                                cfg.chunk_size)
-    r = rays.shape[2]
     chunk_bytes = int(count.sum()) * cfg.chunk_size * 64 * 4
     nbytes = chunk_bytes + rays.numel() * 4 + acc.numel() * 4 + \
         2 * binned.tile_counts.numel() * 4 + extra_bytes
-    pairs = int(binned.tile_counts.sum()) * r
-    hits = float(acc[:, 5].sum())
-    ops = pairs * OPS_PER_PAIR + hits * OPS_PER_HIT
-    return roofline(nbytes, ops)
+    ops, ops72 = chain_ops(n, OPS_PER_HIT)
+    return (*roofline(nbytes, ops), roofline(nbytes, ops72)[0])
 
 
 def roofline(nbytes, ops):
@@ -173,10 +248,11 @@ def roofline(nbytes, ops):
                                        else "operations")
 
 
-def bound_bwd_ms(binned, rays, acc, cfg):
-    """K2's least time: the gate chain per real pair and OPS_PER_HIT_BWD per
-    composited pair (hit counts of the forward) against the chunk rows of
-    the visited runs, rays, T_in and bar_acc read and bar_chunks written."""
+def bound_bwd_ms(binned, rays, acc, cfg, n):
+    """K2's least time: the gate chain as the data needs it (chain_counts)
+    and OPS_PER_HIT_BWD per composited pair, against the chunk rows of the
+    visited runs, rays, T_in and bar_acc read and bar_chunks written;
+    returns (ms, bound by, ms with the whole chain on every real pair)."""
     from gvrt_tpu_torch.render.pallas_forward import tile_chunk_runs
     _, count = tile_chunk_runs(binned.tile_counts, binned.chunks.shape[0],
                                cfg.chunk_size)
@@ -184,9 +260,8 @@ def bound_bwd_ms(binned, rays, acc, cfg):
     nbytes = (int(count.sum()) * cfg.chunk_size * 64 * 4 + rays.numel() * 4
               + binned.chunks.shape[0] * r * 4 + acc.numel() * 4
               + binned.chunks.numel() * 4 + 2 * binned.tile_counts.numel() * 4)
-    ops = (int(binned.tile_counts.sum()) * r * OPS_PER_PAIR
-           + float(acc[:, 5].sum()) * OPS_PER_HIT_BWD)
-    return roofline(nbytes, ops)
+    ops, ops72 = chain_ops(n, OPS_PER_HIT_BWD)
+    return (*roofline(nbytes, ops), roofline(nbytes, ops72)[0])
 
 
 def rel_l2(got, want):
@@ -436,8 +511,9 @@ def garden_window(gt, torch, dev, bd, binning, pf, sr, rows64_from_model,
     remat "full", refresh_every 10); 10 Trainer.steps against 0.3.  Then
     K1's residual and K2 against their plain versions on band 0's busiest
     512 tiles, and K4 on band 0's real per-slot cotangents.  Returns K4's
-    times, bound and error, the window's launch counts and the largest
-    absolute errors of T_in and of K2 on the slice."""
+    times, bound and error, the window's launch counts, the times and
+    bounds of K1 and K2 at band 0's shapes (garden_kernel_times) and the
+    largest absolute errors of T_in and of K2 on the slice."""
     import numpy as np
     t_phase = time.time()
     mem0 = torch.cuda.memory_allocated()
@@ -540,8 +616,8 @@ def garden_window(gt, torch, dev, bd, binning, pf, sr, rows64_from_model,
     tin_err, k2_err = check_training_kernels(
         torch, part, part_rays, base, "garden_band0_512_tiles", 15)
     del part, part_rays
-    garden_kernel_times(torch, pf, chunks.detach(), rays, topo, base, name,
-                        power)
+    garden_times = garden_kernel_times(torch, pf, chunks.detach(), rays,
+                                       topo, base, name, power)
     check, idx, vals, lib = check_compact_reduce(torch, sr, bar, topo.red,
                                                  "garden_window_band0")
     n_groups = topo.red.out_shape.shape[0]
@@ -561,18 +637,22 @@ def garden_window(gt, torch, dev, bd, binning, pf, sr, rows64_from_model,
                       "bound_by": k4_b_by,
                       "seconds": time.time() - t_phase}), flush=True)
     return (k4_ms, k4_plain_ms, k4_lib_ms, k4_b_ms, k4_b_by,
-            check["max_abs_err"], window_launches, tin_err, k2_err)
+            check["max_abs_err"], window_launches, garden_times, tin_err,
+            k2_err)
 
 
 def garden_kernel_times(torch, pf, chunks, rays, topo, cfg, name, power):
-    """K1's residual variant and K2 at band 0's full shapes (CUDA-event
-    medians, as cuda_ms), each beside its bound from this band's chunk runs
-    and hit counts; K2 takes the cotangent of the window's L1 loss."""
+    """K1 (serving and with its residual) and K2 at band 0's full shapes
+    (CUDA-event medians, as cuda_ms), each beside its bound from this
+    band's chunk runs and hit counts; K2 takes the cotangent of the
+    window's L1 loss.  Returns {kernel: (ms, bound ms, bound by, bound
+    ms with the whole chain on every real pair)}."""
     from gvrt_tpu_torch.render import binning
     from gvrt_tpu_torch.render import pallas_vjp as pv
     scene = binning.binned_scene(chunks, topo)
     counts = topo.tile_counts
     with torch.no_grad():
+        serve_ms = cuda_ms(lambda: pf.tile_forward(chunks, rays, counts, cfg))
         res_ms = cuda_ms(lambda: pf.tile_forward_residual(chunks, rays,
                                                           counts, cfg))
         acc, t_in = pf.tile_forward_residual(chunks, rays, counts, cfg)
@@ -582,15 +662,22 @@ def garden_kernel_times(torch, pf, chunks, rays, topo, cfg, name, power):
             fixed[:, 0:3] - TRAIN_TARGET) / (FULL_W * FULL_H * 3), 0.0)
         k2_ms = cuda_ms(lambda: pv.tile_backward(chunks, rays, counts, t_in,
                                                  bar, cfg))
-    res_b = bound_ms(scene, rays, acc, cfg, extra_bytes=t_in.numel() * 4)
-    k2_b = bound_bwd_ms(scene, rays, acc, cfg)
-    for metric, ms, (b_ms, b_by) in (
-            ("tile_forward_residual_garden_ms", res_ms, res_b),
-            ("tile_backward_garden_ms", k2_ms, k2_b)):
-        print(json.dumps({"metric": metric, "ms": ms, "bound_ms": b_ms,
-                          "bound_by": b_by, "chunks": int(chunks.shape[0]),
+        n = chain_counts(scene, rays, cfg)
+    times = {
+        "tile_forward": (serve_ms, *bound_ms(scene, rays, acc, cfg, n)),
+        "tile_forward_residual": (res_ms, *bound_ms(
+            scene, rays, acc, cfg, n, extra_bytes=t_in.numel() * 4)),
+        "tile_backward": (k2_ms, *bound_bwd_ms(scene, rays, acc, cfg, n)),
+    }
+    print(json.dumps({"phase": "garden_chain_counts", **n}), flush=True)
+    for kname, (ms, b_ms, b_by, b72_ms) in times.items():
+        print(json.dumps({"metric": f"{kname}_garden_ms", "ms": ms,
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "bound_ms_chain72": b72_ms,
+                          "chunks": int(chunks.shape[0]),
                           "tiles": int(rays.shape[0]), "card": name,
                           "power_limit": power}), flush=True)
+    return times
 
 
 def main():
@@ -764,7 +851,10 @@ def main():
             lambda: pf.forward_tiles_reference(full, full_rays, base))
         report("tile_forward_plain_ms", plain_ms)
         full_err = float((acc - plain)[:, 0:5].abs().max())
-        b_ms, b_by = bound_ms(full, full_rays, acc, base)
+        full_n = chain_counts(full, full_rays, base)
+        print(json.dumps({"phase": "full_frame_chain_counts", **full_n}),
+              flush=True)
+        k1_bound = bound_ms(full, full_rays, acc, base, full_n)
         del plain
     torch.cuda.synchronize()
 
@@ -940,8 +1030,9 @@ def main():
             report("tile_forward_residual_plain_ms", res_plain_ms)
             res_err = max(float((t_in - t_in_p).abs().max()),
                           float((acc_t - acc_p)[:, 0:5].abs().max()))
-            res_b_ms, res_b_by = bound_ms(scene_t, full_rays, acc_t, base,
-                                          extra_bytes=t_in.numel() * 4)
+            train_n = chain_counts(scene_t, full_rays, base)
+            res_bound = bound_ms(scene_t, full_rays, acc_t, base, train_n,
+                                 extra_bytes=t_in.numel() * 4)
             del acc_p, t_in_p
             # the loss's own cotangent of the accumulators
             bar = torch.zeros_like(acc_t)
@@ -970,7 +1061,8 @@ def main():
                               "max_abs_err": k2_err}), flush=True)
             if max(k2_full.values()) > 1e-4 or max(k2_cols.values()) > 1e-4:
                 fail("K2 disagrees with its plain version at full width")
-            k2_b_ms, k2_b_by = bound_bwd_ms(scene_t, full_rays, acc_t, base)
+            k2_bound = bound_bwd_ms(scene_t, full_rays, acc_t, base,
+                                    train_n)
             del bar_p
 
             # ---- 6. K3 on the window's real cotangents -------------------
@@ -1155,7 +1247,7 @@ def main():
 
     # ---- 10. the garden-scale banded training window ----------------------
     (k4_ms, k4_plain_ms, k4_lib_ms, k4_b_ms, k4_b_by, k4_err,
-     garden_launches, *garden_errs) = garden_window(
+     garden_launches, garden_times, *garden_errs) = garden_window(
         gt, torch, dev, bd, binning, pf, sr, rows64_from_model,
         reset_launches, launches, event_ms, name, power)
     k4_err = max(k4_errs + [k4_err])
@@ -1163,24 +1255,32 @@ def main():
 
     # ---- 11. kernels -----------------------------------------------------
     def entry(kname, src, replaces, n_launch, err, ms, p_ms, bnd, lib):
-        return {"name": kname, "route": "cuda",
+        line = {"name": kname, "route": "cuda",
                 "source": f"{PKG}/csrc/{src}", "replaces": replaces,
                 "launches": n_launch, "max_abs_err": err, "ms": ms,
                 "plain_ms": p_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
                 "library_ms": lib}
+        if len(bnd) > 2:  # the gate chain's kernels: the earlier count too
+            line["bound_ms_chain72"] = bnd[2]
+        if kname in garden_times:  # also at garden band 0's shapes
+            g_ms, g_b_ms, g_b_by, g_b72_ms = garden_times[kname]
+            line["garden_band0"] = {"ms": g_ms, "bound_ms": g_b_ms,
+                                    "bound_by": g_b_by,
+                                    "bound_ms_chain72": g_b72_ms}
+        return line
 
     vjp = "3dgvrt_lightfield_tpu/render/pallas_vjp.py"
     print(json.dumps({"kernels": [
         entry("tile_forward", "tile_forward.cu", f"{vjp}:74",
               serve_launches["tile_forward"], max(errs + [full_err]), k_ms,
-              plain_ms, (b_ms, b_by), None),
+              plain_ms, k1_bound, None),
         entry("tile_forward_residual", "tile_forward.cu", f"{vjp}:74",
               train_launches["tile_forward_residual"],
               max(tin_errs + [res_err]), res_ms, res_plain_ms,
-              (res_b_ms, res_b_by), None),
+              res_bound, None),
         entry("tile_backward", "tile_backward.cu", f"{vjp}:99",
               train_launches["tile_backward"], max(k2_errs + [k2_err]),
-              k2_ms, k2_plain_ms, (k2_b_ms, k2_b_by), None),
+              k2_ms, k2_plain_ms, k2_bound, None),
         entry("segment_reduce", "segment_reduce.cu",
               "3dgvrt_lightfield_tpu/render/segreduce.py:129",
               train_launches["segment_reduce"], k3_err, k3_ms, k3_plain_ms,

@@ -1,14 +1,43 @@
 #!/usr/bin/env python3
-"""A/B timing of the serving tile kernel (K1) and of `render_bound` across
-checkouts of the PyTorch port, on one card.
+"""A/B timing of the forward tile kernel (K1) on one card: versions of its
+source in one process, or whole checkouts in interleaved processes.
 
-Each ROOT is a checkout of the repository (for example the parent commit
-and the working tree, each unpacked with `git archive` into a git-ignored
-directory).  For each of --rounds rounds every ROOT runs in a process of
-its own, in the order given: it imports that checkout's package and
-`chip_smoke.py`, draws chip_smoke.py's full-width frame (1920x1088, the
-300k-Gaussian bench scene), binds a `TiledRenderer` to it and prints one
-JSON line with the CUDA-event medians of --n runs of K1 alone
+Source mode, when every argument is a `.cu` file: each SRC is a version of
+`csrc/tile_forward.cu` (for example the parent commit's, unpacked with `git
+archive` into a git-ignored directory, and the working tree's; a sibling
+`tile_common.cuh` is included).  Every SRC is compiled with nvcc as
+`_build.py` compiles it, plus `-Xptxas -v` (each template instance's
+registers, spills and stack are printed), and loaded with ctypes in this one
+process; K1's wrappers `pallas_forward.tile_forward` (serving) and
+`tile_forward_residual` (training, with T_in) then launch each library in
+turn on the same inputs:
+
+  * `300k`: the full-width frame of `chip_smoke.py` (1920x1088, the
+    300k-Gaussian bench scene, default config);
+  * `garden`: band 0 of `chip_smoke.py`'s garden window (5M Gaussians,
+    y-sorted, 2 span bands at 1920x1088).
+
+For each frame, variant and each of --rounds rounds the SRCs are timed in
+the order given, then in reverse (A B B A), each a CUDA-event median of --n
+launches; one JSON line per timing, then per SRC and variant the mean over
+its timings and its outputs (acc, and T_in for the residual) against the
+first SRC's: bit equality and max abs (and the sums of acc's rows 6 and 7,
+zero in K1, where a counting copy may keep per-ray counts).  Every SRC
+must have the current wrapper's interface of `gvrt_tile_forward`; compare
+sources of an older interface in checkout mode.
+`--sass DIR` also writes `cuobjdump -sass` of each SRC's default instance
+(degree 4, product transmittance) to DIR.
+
+    python3 scripts/torch_k1_ab.py [--rounds 2] [--n 20] [--frames 300k,garden]
+        [--sass DIR] SRC.cu [SRC.cu ...]
+
+(`--frames ""` only builds and prints the registers and spills.)
+
+Checkout mode, when every argument is a directory: each ROOT is a checkout
+of the repository.  For each of --rounds rounds every ROOT runs in a process
+of its own, in the order given: it imports that checkout's package and
+`chip_smoke.py`, draws the 300k frame, binds a `TiledRenderer` to it and
+prints one JSON line with the CUDA-event medians of --n runs of K1 alone
 (`tile_forward`), of `render_bound`, and, where the checkout has it, of K1's
 training variant (`tile_forward_residual`), all under `torch.no_grad()`.
 Interleaving the checkouts spreads the card's drift over all of them.
@@ -17,10 +46,17 @@ Interleaving the checkouts spreads the card's drift over all of them.
 """
 
 import argparse
+import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+#: mangled K1 instance: tile_forward_kernel<DEG, PROD>
+_INSTANCE = re.compile(r"tile_forward_kernelILi(n?\d+)ELb(\d)E")
 
 
 def child(root, n):
@@ -56,21 +92,171 @@ def child(root, n):
     print(json.dumps({**line, "card": chip_smoke.card_line()}), flush=True)
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("roots", nargs="+")
-    ap.add_argument("--rounds", type=int, default=3)
-    ap.add_argument("--n", type=int, default=100)
-    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.child:
-        return child(args.roots[0], args.n)
+def checkouts(args):
     roots = [os.path.abspath(root) for root in args.roots]
     for _ in range(args.rounds):
         for root in roots:
             subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--child", "--n", str(args.n), root],
                            cwd=root, check=True, timeout=600)
+
+
+def build(src, out_dir):
+    """nvcc SRC into out_dir with `_build.py`'s flags and -Xptxas -v;
+    returns (library path, the kernel lines of ptxas' report)."""
+    from gvrt_tpu_torch import _build
+    with open(src, "rb") as f:
+        key = hashlib.sha256(f.read()).hexdigest()[:12]
+    path = os.path.join(out_dir, f"libk1_{key}.so")
+    os.makedirs(out_dir, exist_ok=True)
+    proc = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+                           "-o", path, src], capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc {src}:\n{proc.stdout}\n{proc.stderr}")
+    # one line per template instance <DEG, PROD>: registers and spills
+    report, inst, spill = [], None, ""
+    for line in (proc.stdout + proc.stderr).splitlines():
+        m = _INSTANCE.search(line)
+        if m:
+            inst = "<{}, {}>".format(m.group(1).replace("n", "-"), m.group(2))
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and inst:
+            report.append(f"{inst}: {line.split(':', 1)[1].strip()}; "
+                          f"{spill}")
+            inst = None
+    return path, report
+
+
+def sass(path, src, out_dir):
+    """cuobjdump -sass of the <4, true> instance of a built library."""
+    from gvrt_tpu_torch import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    proc = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, timeout=300)
+    text = proc.stdout
+    # keep the function whose header names the default instance
+    parts = re.split(r"(?=\n\s*Function : )", text)
+    keep = [p for p in parts if "tile_forward_kernelILi4ELb1E" in p]
+    os.makedirs(out_dir, exist_ok=True)
+    name = os.path.join(out_dir, os.path.basename(os.path.dirname(src))
+                        + "_" + os.path.basename(src) + ".sass")
+    with open(name, "w") as f:
+        f.write(keep[0] if keep else text)
+    n_instr = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+[A-Z@]",
+                             keep[0] if keep else ""))
+    return name, n_instr
+
+
+def load(path):
+    import ctypes
+    from gvrt_tpu_torch import _build
+    lib = ctypes.CDLL(path)
+    argtypes, restype = _build.SIGNATURES["tile_forward"]["gvrt_tile_forward"]
+    lib.gvrt_tile_forward.argtypes = argtypes
+    lib.gvrt_tile_forward.restype = restype
+    return lib
+
+
+def sources(args):
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("torch_k1_ab: needs a CUDA card")
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import chip_smoke
+    import gvrt_tpu_torch as gt
+    import torch_k2_ab
+    from gvrt_tpu_torch import _build
+    from gvrt_tpu_torch.render import pallas_forward as pf
+
+    card = chip_smoke.card_line()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out_dir = os.path.join(ROOT, "build", "k1ab_libs")
+    libs = []
+    for src in args.roots:
+        path, report = build(os.path.abspath(src), out_dir)
+        libs.append(load(path))
+        line = {"src": src, "ptxas": report}
+        if args.sass:
+            line["sass_file"], line["sass_instructions"] = sass(
+                path, src, args.sass)
+        print(json.dumps(line), flush=True)
+
+    variants = {"serving": pf.tile_forward,
+                "residual": pf.tile_forward_residual}
+
+    def run(i, variant, *inputs):
+        _build._libs["tile_forward"] = libs[i]
+        out = variants[variant](*inputs)
+        return out if isinstance(out, tuple) else (out,)
+
+    makers = {"300k": torch_k2_ab.frame_300k,
+              "garden": torch_k2_ab.frame_garden}
+    for frame in filter(None, args.frames.split(",")):
+        inputs = makers[frame](gt, torch, dev)
+        for variant in variants:
+            times = {i: [] for i in range(len(libs))}
+            with torch.no_grad():
+                for rnd in range(args.rounds):
+                    order = list(range(len(libs)))
+                    for i in order + order[::-1]:
+                        ms = chip_smoke.cuda_ms(
+                            lambda: run(i, variant, *inputs), n=args.n)
+                        times[i].append(ms)
+                        print(json.dumps({"frame": frame, "variant": variant,
+                                          "round": rnd, "src": args.roots[i],
+                                          "ms": ms}), flush=True)
+                ref = run(0, variant, *inputs)
+                for i, src in enumerate(args.roots):
+                    got = run(i, variant, *inputs)
+                    again = run(i, variant, *inputs)
+                    torch.cuda.synchronize()
+                    names = ("acc", "t_in")[:len(got)]
+                    print(json.dumps({
+                        "frame": frame, "variant": variant, "src": src,
+                        "mean_ms": sum(times[i]) / len(times[i]),
+                        "ms": times[i],
+                        "bit_identical_to_first": {
+                            k: torch.equal(g, r)
+                            for k, g, r in zip(names, got, ref)},
+                        "max_abs_vs_first": {
+                            k: float((g - r).abs().max())
+                            for k, g, r in zip(names, got, ref)},
+                        "bit_identical_runs": all(
+                            torch.equal(g, a) for g, a in zip(got, again)),
+                        "hits": float(got[0][:, 5].sum()),
+                        "acc_rows_6_7": [float(got[0][:, 6].sum()),
+                                         float(got[0][:, 7].sum())],
+                        "chunks": int(inputs[0].shape[0]),
+                        "tiles": int(inputs[1].shape[0]), "card": card}),
+                        flush=True)
+            del ref, got, again
+        del inputs
+        torch.cuda.empty_cache()
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("roots", nargs="+", metavar="SRC|ROOT")
+    ap.add_argument("--rounds", type=int, default=None)
+    ap.add_argument("--n", type=int, default=None)
+    ap.add_argument("--frames", default="300k,garden")
+    ap.add_argument("--sass", default=None)
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        return child(args.roots[0], args.n)
+    if all(r.endswith(".cu") for r in args.roots):
+        args.rounds = 2 if args.rounds is None else args.rounds
+        args.n = 20 if args.n is None else args.n
+        return sources(args)
+    if not all(os.path.isdir(r) for r in args.roots):
+        sys.exit("torch_k1_ab: give .cu sources or checkout directories")
+    args.rounds = 3 if args.rounds is None else args.rounds
+    args.n = 100 if args.n is None else args.n
+    return checkouts(args)
 
 
 if __name__ == "__main__":

@@ -18,7 +18,7 @@ For each frame and each of --rounds rounds the SRCs are timed in the order
 given, then in reverse (A B B A), each a CUDA-event median of --n launches;
 one JSON line per timing, then per SRC the mean over its timings and its
 outputs against the first SRC's (relative L2 per column group, max abs,
-bit equality).
+bit equality with the first SRC's and between two runs).
 
     python3 scripts/torch_k2_ab.py [--rounds 2] [--n 20] [--frames 300k,garden]
         SRC.cu [SRC.cu ...]
@@ -173,6 +173,7 @@ def main():
                     k: chip_smoke.rel_l2(got[..., c], ref[..., c])
                     for k, c in chip_smoke.COL_GROUPS.items()},
                 "max_abs_vs_first": float((got - ref).abs().max()),
+                "bit_identical_to_first": torch.equal(got, ref),
                 "bit_identical_runs": torch.equal(got, again),
                 "chunks": int(chunks.shape[0]), "tiles": int(rays.shape[0]),
                 "card": card}), flush=True)

@@ -127,6 +127,106 @@ def test_kernel_edge_cases(cuda):
     assert bool((got[empty] == bg).all())
 
 
+#: every branch of the kernel's response (degree 2 is the quadratic
+#: default), and the log-space transmittance
+THRESHOLD_CONFIGS = {
+    **{f"degree_{d}": BASE.replace(kernel_degree=d)
+       for d in (8, 5, 4, 3, 2, 1, 0)},
+    "logspace": BASE.replace(transmittance_prod=False),
+}
+
+
+def _threshold_scene(cuda, cfg, n=2000, res=128, seed=7):
+    """Isotropic gaussians each placed so that one chosen ray passes at a
+    gray distance within 1e-3 relative of the response cutoff D, on either
+    side; the rays of every other tile get origins jittered by ~1e-4, so
+    both the shared-origin and the per-lane origin paths of K1 run.  Half
+    the gaussians are so small (cutoff disks of ~0.1-0.5 px) that the
+    chosen ray is often the only one of its warp near them: there the
+    warp's skip turns on that pair alone.  Low overlap and densities in
+    [0.4, 0.6] keep T far above min_T and the alpha gate open at the
+    cutoff, so the response gate alone decides."""
+    rng = np.random.default_rng(seed)
+    cam = gt.Camera.from_fovy(res, res, 60.0, np.eye(4))
+    rays = binning.tile_rays(cam, cfg, cuda)
+    jitter = torch.from_numpy(
+        1e-4 * rng.standard_normal(rays[:, 0:3].shape).astype(np.float32))
+    rays[0::2, 0:3] += jitter.to(cuda)[0::2]
+    num_tiles, _, r = rays.shape
+    tile = rng.integers(0, num_tiles, n)
+    ray = rng.integers(0, r, n)
+    o = rays[tile, 0:3, ray].double().cpu().numpy()
+    d = rays[tile, 3:6, ray].double().cpu().numpy()
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    u = np.cross(d, rng.standard_normal((n, 3)))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    scale = np.where(np.arange(n) % 2 == 0, rng.uniform(0.005, 0.03, n),
+                     rng.uniform(0.0008, 0.003, n))
+    cut = gt.ops.kernels.gray_cutoff(cfg.hit_min_response, cfg.kernel_degree)
+    rho = scale * np.sqrt(cut * (1.0 + rng.uniform(-1e-3, 1e-3, n)))
+    means = o + rng.uniform(2.5, 3.5, (n, 1)) * d + rho[:, None] * u
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    model = gt.random_gaussians(g, n, device=cuda)
+    with torch.no_grad():
+        model.means.copy_(torch.from_numpy(means))
+        model.scales_log.copy_(torch.from_numpy(
+            np.repeat(np.log(scale)[:, None], 3, axis=1)))
+        dens = rng.uniform(0.4, 0.6, n)
+        model.opacity_logit.copy_(torch.from_numpy(np.log(dens / (1 - dens))))
+        act = model.activate()
+        w2c, proj = _camera_mats(cam)
+        cap, cap_pad = binning.plan_capacity(act, w2c, proj, res, res, cfg)
+        topo = binning.bin_topology(act, w2c, proj, res, res, cfg, cap,
+                                    cap_pad)
+        assert int(topo.overflow) == 0
+        scene = binning.binned_scene(binning.gather_chunks(act, topo, cfg),
+                                     topo)
+    return scene, rays, cut
+
+
+def _near_cutoff_pairs(scene, rays, cut):
+    """(inside, outside, lone): binned pairs of live gaussians whose gray
+    distance (float64) lies within 1e-3 relative below / above the cutoff,
+    and the inside ones that no other ray of their warp (32 rays, two pixel
+    rows) brings within 1e-3 above the cutoff: only the pair's own vote
+    keeps the warp from skipping the gaussian there."""
+    chunks = scene.chunks.double()
+    tr = rays[scene.chunk_tile.clamp_max(rays.shape[0] - 1).long()].double()
+    m = chunks[..., 0:9].reshape(*chunks.shape[:2], 3, 3)      # (C, G, 3, 3)
+    gro = torch.einsum("cgij,cjr->cgir", m, tr[:, 0:3]) \
+        - chunks[..., 9:12, None]
+    gu = torch.einsum("cgij,cjr->cgir", m, tr[:, 3:6])
+    gray = (torch.linalg.cross(gu, gro, dim=2) ** 2).sum(2) \
+        / (gu ** 2).sum(2)
+    live = (chunks[..., 12:13] > 0) \
+        & (scene.chunk_tile < rays.shape[0])[:, None, None]
+    rel = gray / cut - 1.0
+    inside = live & (rel < 0) & (rel > -1e-3)
+    near = (live & (rel < 1e-3)).unflatten(2, (-1, 32)).sum(3)
+    lone = inside & (near == 1).repeat_interleave(32, dim=2)
+    return (int(inside.sum()), int((live & (rel >= 0) & (rel < 1e-3)).sum()),
+            int(lone.sum()))
+
+
+@pytest.mark.parametrize("name", sorted(THRESHOLD_CONFIGS))
+def test_forward_kernel_threshold_pairs(cuda, name):
+    """K1's warp-wide early reject against the plain version where it is
+    closest to wrong: many pairs within 1e-3 of the response cutoff, on
+    both sides, hit counts equal on every ray."""
+    cfg = THRESHOLD_CONFIGS[name]
+    scene, rays, cut = _threshold_scene(cuda, cfg)
+    inside, outside, lone = _near_cutoff_pairs(scene, rays, cut)
+    assert inside >= 300 and outside >= 300 and lone >= 200, (
+        inside, outside, lone)
+    got = _assert_kernel_matches_plain(scene, rays, cfg)
+    with torch.no_grad():
+        want = pf.forward_dispatch(scene, rays, cfg, "torch")
+    assert torch.equal(got[:, 5], want[:, 5])
+    assert float(got[:, 5].sum()) > 1000
+    # no ray reached the transmittance cutoff: the response gate decides
+    assert float(got[:, 4].amin()) > 2 * cfg.min_transmittance
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     scene, rays = _binned(cuda, BASE, n=200)
     wide = torch.zeros((4, 256, 64), device=cuda)

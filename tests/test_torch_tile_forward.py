@@ -9,6 +9,7 @@ counts exact.  The CUDA kernel itself is checked on the card only
 """
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +22,7 @@ from gvrt_tpu.render import binning as jb
 from gvrt_tpu.render import pallas_forward as jpf
 from gvrt_tpu.render import tile_math as jtm
 from gvrt_tpu.render.tiled import _camera_mats
+from gvrt_tpu_torch.ops.kernels import particle_response
 from gvrt_tpu_torch.render import binning as tb
 from gvrt_tpu_torch.render import pallas_forward as tpf
 from gvrt_tpu_torch.render import tile_math as ttm
@@ -177,3 +179,30 @@ def test_impl_cuda_on_cpu_tensors_raises():
     with pytest.raises(ValueError, match="unknown impl"):
         tpf.forward_dispatch(tbinned, trays, cfg, "pallas")
     assert tpf.resolve_impl("auto", torch.device("cpu")) == "torch"
+
+
+@pytest.mark.parametrize("degree", [8, 5, 4, 3, 2, 1, 0])
+def test_response_cutoff_is_conservative(degree):
+    """The kernel skips a pair whose gray distance is at least the wrapper's
+    D_hi up to three f32 roundings.  D_hi lies within 1e-3 above the exact
+    cutoff (the skip has teeth), and the plain f32 response from just below
+    D_hi to 1e-3 above it stays 8 ulp under the gate (the card's expf is
+    within 2 ulp), so no skipped pair would have been accepted."""
+    h = torch_cfg(g3.DEFAULT_CONFIG).hit_min_response
+    d_hi = tpf.response_cutoff(degree, h)
+    lo, hi = 0.0, 100.0  # the exact cutoff, by bisection in float64
+    for _ in range(200):
+        mid = 0.5 * (lo + hi)
+        resp = float(particle_response(torch.tensor(mid, dtype=torch.float64),
+                                       degree))
+        lo, hi = (mid, hi) if resp > h else (lo, mid)
+    assert hi <= d_hi <= hi * (1.0 + 1e-3)
+    first = np.float32(d_hi * (1.0 - 4 * 2.0 ** -23)).view(np.int32) - 1
+    last = np.float32(d_hi * (1.0 + 1e-3)).view(np.int32)
+    gray = np.arange(first, last + 1, dtype=np.int32).view(np.float32)
+    resp = particle_response(torch.from_numpy(gray), degree)
+    assert resp.dtype == torch.float32 and len(gray) > 1000
+    gate = (np.float32(h).view(np.int32) - 8).view(np.float32)
+    assert float(resp.max()) <= gate
+    for off in (0.0, -1.0, 1.0):  # no positive gate below 1: no skip
+        assert tpf.response_cutoff(degree, off) == math.inf
