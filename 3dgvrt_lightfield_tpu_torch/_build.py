@@ -46,6 +46,9 @@ SIGNATURES = {
     "segment_reduce_compact": {
         "gvrt_segment_reduce_compact": ([_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                          _P], ctypes.c_int),
+        "gvrt_segment_reduce_compact_table": ([_P, _P, _P, _P, _P, _P, _P, _I,
+                                               _I, _I, _I, _I, _I, _P],
+                                              ctypes.c_int),
     },
 }
 

@@ -11,9 +11,9 @@ scatter into contiguous segment sums.  Two routes:
     Gaussians): the slot gather and the per-Gaussian sum in one kernel, K3
     on the card (`segreduce.segment_reduce`), a direct sum per Gaussian;
   * the compact plan of the banded path (`segreduce.CompactReducePlan`):
-    the same sum over the band's live Gaussians renumbered densely, K4 on
-    the card (`segreduce.segment_reduce_compact`), then one windowed
-    expansion back to the table;
+    the same sum over the band's live Gaussians renumbered densely, written
+    through the plan's live-id window straight into the table, by K4's
+    table mode on the card (`segreduce.segment_reduce_compact_table`);
   * the prefix fallback (no plan in the topology): a blocked inclusive
     cumsum and segment differences, plain PyTorch.
 """
@@ -23,7 +23,8 @@ from __future__ import annotations
 import torch
 
 from .segreduce import (GROUP, CompactReducePlan, segment_reduce,
-                        segment_reduce_compact, segment_reduce_compact_plain,
+                        segment_reduce_compact_table,
+                        segment_reduce_compact_table_plain,
                         segment_reduce_plain)
 
 
@@ -73,23 +74,14 @@ def _bwd_segreduce(n_rows, red, bar_flat, impl: str):
 
 def _bwd_segreduce_compact(n_rows, red: CompactReducePlan, bar_flat,
                            impl: str):
-    """Compact direct segment sum (K4 for "auto"/"cuda" on CUDA tensors, the
-    plain version for "torch" or on the CPU), then the expansion back to
-    the (n_rows, C) table: the plan's live-id window `src_range` gathers
-    the compact sums (ids outside the band's live set read zero) and lands
-    at rows [base, base + window) in one indexed copy."""
-    n_groups_c = red.out_shape.shape[0]
-    cap_live = n_groups_c * GROUP
+    """Compact direct segment sum expanded to the (n_rows, C) table: the
+    plan's live-id window `src_range` takes the compact sums (ids outside
+    the band's live set read zero) to rows [base, base + window).  K4's
+    table mode for "auto"/"cuda" (on CUDA tensors; the CPU runs its plain
+    version), the plain two-step route for "torch"."""
     if impl == "torch":
-        out = segment_reduce_compact_plain(bar_flat, red, n_groups_c)
-    else:
-        out = segment_reduce_compact(bar_flat, red, n_groups_c)
-    src = red.src_range.long()
-    sub = torch.where((src < cap_live)[:, None],
-                      out[torch.clamp_max(src, cap_live - 1)], 0.0)
-    rows = red.base.long() + torch.arange(src.shape[0], device=src.device)
-    full = bar_flat.new_zeros((n_rows, bar_flat.shape[1]))
-    return full.index_copy_(0, rows, sub)
+        return segment_reduce_compact_table_plain(bar_flat, red, n_rows)
+    return segment_reduce_compact_table(bar_flat, red, n_rows)
 
 
 class _ChunkedGather(torch.autograd.Function):

@@ -13,8 +13,9 @@ pairs' (64,) cotangent rows.  Two layouts, each with its kernel:
     live Gaussians renumbered 0..n_live-1 in id order and their live pairs
     laid out densely in rank order, with no alignment padding;
     `segment_reduce_compact` sums them per compact id (K4,
-    `csrc/segment_reduce_compact.cu`), and the caller expands the compact
-    sums back to the parameter table through the plan's live-id window.
+    `csrc/segment_reduce_compact.cu`), and `segment_reduce_compact_table`
+    (K4's table mode) writes those sums straight into the parameter table
+    through the plan's live-id window.
 
 Both kernels fuse the slot gather of the cotangent rows and give a DIRECT,
 deterministic f32 sum per Gaussian.  The plans are pure topology: built once
@@ -353,6 +354,54 @@ def segment_reduce_compact_plain(bar_flat: torch.Tensor,
     return out
 
 
+def expand_compact(out: torch.Tensor, red: CompactReducePlan,
+                   n_rows: int) -> torch.Tensor:
+    """(cap_live, C) compact sums -> the (n_rows, C) parameter table: the
+    plan's live-id window `src_range` gathers the sums (ids outside the
+    band's live set read zero) and lands at rows [base, base + window) in
+    one indexed copy; every other row is zero."""
+    cap_live = out.shape[0]
+    src = red.src_range.long()
+    sub = torch.where((src < cap_live)[:, None],
+                      out[torch.clamp_max(src, cap_live - 1)], 0.0)
+    rows = red.base.long() + torch.arange(src.shape[0], device=src.device)
+    full = out.new_zeros((n_rows, out.shape[1]))
+    return full.index_copy_(0, rows, sub)
+
+
+def segment_reduce_compact_table_plain(bar_flat: torch.Tensor,
+                                       red: CompactReducePlan,
+                                       n_rows: int) -> torch.Tensor:
+    """Plain version of K4's table mode: K4's plain version, then the
+    expansion back to the table (the JAX package's two steps)."""
+    n_groups = red.out_shape.shape[0]
+    return expand_compact(segment_reduce_compact_plain(bar_flat, red,
+                                                       n_groups), red, n_rows)
+
+
+def _check_compact(name, bar_flat: torch.Tensor, red: CompactReducePlan,
+                   fields) -> None:
+    """Raise unless the inputs are what K4 takes: contiguous f32 (P, 64)
+    cotangents and the plan's `fields` contiguous int32 on their device."""
+    if bar_flat.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or the CPU, not "
+                         f"{bar_flat.device}")
+    if bar_flat.shape[1:] != (64,) or bar_flat.dtype != torch.float32 or \
+            not bar_flat.is_contiguous():
+        raise ValueError(f"bar_flat must be contiguous f32 (P, 64), got "
+                         f"{bar_flat.dtype} {tuple(bar_flat.shape)}")
+    for field in fields:
+        x = getattr(red, field)
+        if x.device != bar_flat.device or x.dtype != _I32 or \
+                not x.is_contiguous():
+            raise ValueError(f"plan array {field} must be contiguous int32 "
+                             f"on {bar_flat.device}")
+    nb = red.cloc.shape[0]
+    if red.cloc.shape != (nb, GROUP) or red.slot.shape != (nb * GROUP,) or \
+            red.k0.shape != (nb,) or red.base.shape != (1,):
+        raise ValueError("inconsistent CompactReducePlan shapes")
+
+
 def segment_reduce_compact(bar_flat: torch.Tensor, red: CompactReducePlan,
                            n_groups: int) -> torch.Tensor:
     """(P_pad, 64) per-slot cotangents -> (n_groups * 256, 64) compact sums.
@@ -360,30 +409,15 @@ def segment_reduce_compact(bar_flat: torch.Tensor, red: CompactReducePlan,
     Output row `cid` is the f32 sum of bar_flat[min(slot[r], P_pad - 1)]
     over the plan rows r whose compact id is `cid`; ids with no row are
     zero (every output row is written).  On CUDA tensors this launches
-    `csrc/segment_reduce_compact.cu` (K4) on the current stream and adds one
-    to `segment_reduce_compact.launches`; on CPU tensors it runs the plain
-    version.
+    `csrc/segment_reduce_compact.cu` (K4, compact mode) on the current
+    stream and adds one to `segment_reduce_compact.launches`; on CPU
+    tensors it runs the plain version.
     """
     if bar_flat.device.type == "cpu":
         return segment_reduce_compact_plain(bar_flat, red, n_groups)
-    if bar_flat.device.type != "cuda":
-        raise ValueError(f"segment_reduce_compact runs on CUDA or the CPU, "
-                         f"not {bar_flat.device}")
+    _check_compact("segment_reduce_compact", bar_flat, red,
+                   ("slot", "cloc", "k0"))
     p_pad, c = bar_flat.shape
-    nb = red.cloc.shape[0]
-    if c != 64 or bar_flat.dtype != torch.float32 or \
-            not bar_flat.is_contiguous():
-        raise ValueError(f"bar_flat must be contiguous f32 (P, 64), got "
-                         f"{bar_flat.dtype} {tuple(bar_flat.shape)}")
-    for name in ("slot", "cloc", "k0"):
-        x = getattr(red, name)
-        if x.device != bar_flat.device or x.dtype != _I32 or \
-                not x.is_contiguous():
-            raise ValueError(f"plan array {name} must be contiguous int32 on "
-                             f"{bar_flat.device}")
-    if red.cloc.shape != (nb, GROUP) or red.slot.shape != (nb * GROUP,) or \
-            red.k0.shape != (nb,):
-        raise ValueError("inconsistent CompactReducePlan shapes")
     lib = _build.load("segment_reduce_compact")
     out = torch.empty((n_groups * GROUP, c), dtype=torch.float32,
                       device=bar_flat.device)
@@ -391,8 +425,8 @@ def segment_reduce_compact(bar_flat: torch.Tensor, red: CompactReducePlan,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gvrt_segment_reduce_compact(
             bar_flat.data_ptr(), red.slot.data_ptr(), red.cloc.data_ptr(),
-            red.k0.data_ptr(), out.data_ptr(), p_pad, nb, n_groups, c,
-            stream)
+            red.k0.data_ptr(), out.data_ptr(), p_pad, red.cloc.shape[0],
+            n_groups, c, stream)
     if err != 0:
         raise RuntimeError(f"segment_reduce_compact kernel launch failed: "
                            f"CUDA error {err}")
@@ -402,3 +436,48 @@ def segment_reduce_compact(bar_flat: torch.Tensor, red: CompactReducePlan,
 
 #: kernel launches since the last reset (plain-version calls do not count)
 segment_reduce_compact.launches = 0
+
+
+def segment_reduce_compact_table(bar_flat: torch.Tensor,
+                                 red: CompactReducePlan,
+                                 n_rows: int) -> torch.Tensor:
+    """(P_pad, 64) per-slot cotangents -> the (n_rows, 64) parameter-table
+    gradient of the plan's band, in one launch.
+
+    Row base + i (i < window) is the compact sum of id src_range[i] (as
+    `segment_reduce_compact` gives it, bit for bit), or zero where that is
+    the sentinel cap_live; rows outside the window are zero.  It equals
+    `segment_reduce_compact` followed by `expand_compact`, without the
+    (cap_live, 64) sums and the (window, 64) gather in device memory.  On
+    CUDA tensors this launches K4's table mode on the current stream and
+    adds one to `segment_reduce_compact_table.launches`; on CPU tensors it
+    runs the plain version.
+    """
+    if bar_flat.device.type == "cpu":
+        return segment_reduce_compact_table_plain(bar_flat, red, n_rows)
+    _check_compact("segment_reduce_compact_table", bar_flat, red,
+                   ("slot", "cloc", "k0", "src_range", "base"))
+    p_pad, c = bar_flat.shape
+    window = red.src_range.shape[0]
+    if window > n_rows:
+        raise ValueError(f"live-id window {window} exceeds the table's "
+                         f"{n_rows} rows")
+    lib = _build.load("segment_reduce_compact")
+    out = torch.empty((n_rows, c), dtype=torch.float32,
+                      device=bar_flat.device)
+    with torch.cuda.device(bar_flat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.gvrt_segment_reduce_compact_table(
+            bar_flat.data_ptr(), red.slot.data_ptr(), red.cloc.data_ptr(),
+            red.k0.data_ptr(), red.src_range.data_ptr(), red.base.data_ptr(),
+            out.data_ptr(), p_pad, red.cloc.shape[0],
+            red.out_shape.shape[0] * GROUP, window, n_rows, c, stream)
+    if err != 0:
+        raise RuntimeError(f"segment_reduce_compact_table kernel launch "
+                           f"failed: CUDA error {err}")
+    segment_reduce_compact_table.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (plain-version calls do not count)
+segment_reduce_compact_table.launches = 0

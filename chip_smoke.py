@@ -42,22 +42,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   8. the training entry point: the CLI trains the PLY for 3 steps at
      1920x1088 against the phase-4 renders and writes a PLY, unbanded and
      with --bands 2 --span-bands --sort-scene;
-  9. K4 against its plain version and index_add_ on the two span bands of
-     a 3000-Gaussian 128^2 scene, and the banded step's gradients, kernels
-     against plain versions, on stride, span and balanced bands;
+  9. K4, in both modes, against its plain versions and index_add_ on the
+     two span bands of a 3000-Gaussian 128^2 scene, and the banded step's
+     gradients, kernels against plain versions, on stride, span and
+     balanced bands;
  10. the garden-scale banded training window (the JAX package's
      scripts/config2_scale.py scene: 5M Gaussians at 1920x1088, 2 span
      bands on the y-sorted model): generation, y-sort, plan and bind
-     timed, then 10 Trainer.steps with launch counts, step time and peak
-     memory; then K1's residual and K2 against their plain versions on
-     band 0's busiest 512 tiles, K1 (serving and residual) and K2 timed
-     at band 0's full shapes beside their bounds, and K4 on the window's
-     real per-slot cotangents, timed against its plain version and
-     index_add_;
+     timed, then 10 Trainer.steps with launch counts (K4 in its table
+     mode), step time and peak memory; then K1's residual and K2 against
+     their plain versions on band 0's busiest 512 tiles, K1 (serving and
+     residual) and K2 timed at band 0's full shapes beside their bounds,
+     and K4 on the window's real per-slot cotangents in both modes, timed
+     against its plain versions and index_add_, table mode also against
+     the two-step route it replaced (compact sums, then the expansion);
  11. one JSON line per kernel with its launches, error, time and bound
      (K1 and K2 also at garden band 0's shapes; their bounds count the
      gate chain as this run's data needs it, chain_counts, with the
-     earlier whole-chain count beside them as bound_ms_chain72);
+     earlier whole-chain count beside them as bound_ms_chain72; K4's
+     launches are both modes', its table mode's numbers in `table_mode`);
  12. the last line: {"ok": true, "device": {...}}.
 
 It needs no network and stops every process it starts.  Without CUDA, or
@@ -438,12 +441,81 @@ def check_compact_reduce(torch, sr, bar_flat, red, label):
     return check, idx, vals, lib
 
 
+def reduce_bound_ms(live_rows, out_rows, walked, nb):
+    """K3's least time: the live rows gathered once (256 B each, one add
+    per float), the (out_rows, 64) table written, and the slot and gloc
+    ints of the `walked` blocks that hold live rows (a group's live rows
+    are packed from its first block) with the out_idx of every block."""
+    return roofline(live_rows * 64 * 4 + out_rows * 64 * 4
+                    + walked * 256 * 8 + nb * 4, live_rows * 64)
+
+
+def check_table_reduce(torch, sr, bar_flat, red, n_rows, label):
+    """K4's table mode against its plain version (K4's plain version and
+    the expansion) and index_add_ on one compact plan and per-slot
+    cotangents, after a NaN-poisoned allocator: relative L2 <= 1e-5, two
+    runs bit-identical, every row finite, bit-identical to compact mode's
+    sums expanded through the window, the rows outside the window exactly
+    zero.  index_add_ sums the gathered rows into a zero (n_rows, 64) table
+    by Gaussian id.  Returns the check and the index_add_ operands
+    (Gaussian ids, pre-gathered rows, output)."""
+    n_groups = red.out_shape.shape[0]
+    cap_live, p_pad = n_groups * sr.GROUP, bar_flat.shape[0]
+    poison_allocator(torch, 2 * n_rows * 64 * 4, bar_flat.device)
+    got = sr.segment_reduce_compact_table(bar_flat, red, n_rows)
+    again = sr.segment_reduce_compact_table(bar_flat, red, n_rows)
+    plain = sr.segment_reduce_compact_table_plain(bar_flat, red, n_rows)
+    expanded = sr.expand_compact(sr.segment_reduce_compact(
+        bar_flat, red, n_groups), red, n_rows)
+    # compact id -> Gaussian id through the window (-1: outside it)
+    src = red.src_range.long()
+    base, window = int(red.base[0]), src.shape[0]
+    in_live = src < cap_live
+    gauss_of = torch.full((cap_live + 1,), -1, dtype=torch.long,
+                          device=src.device)
+    gauss_of[src[in_live]] = base + torch.nonzero(in_live).squeeze(1)
+    gid = gauss_of[torch.clamp_max(sr.compact_ids(red), cap_live)]
+    live = gid >= 0
+    idx = gid[live]
+    vals = bar_flat[torch.clamp_max(red.slot.long()[live], p_pad - 1)]
+    lib = torch.zeros_like(plain)
+    lib.index_add_(0, idx, vals)
+    torch.cuda.synchronize()
+    check = {"rel_l2_vs_plain": rel_l2(got, plain),
+             "rel_l2_vs_index_add": rel_l2(got, lib),
+             "max_abs_err": float((got - plain).abs().max()),
+             "bit_identical_runs": torch.equal(got, again),
+             "bit_identical_to_compact_expanded": torch.equal(got, expanded),
+             "finite": bool(got.isfinite().all()),
+             "outside_window_zero": not bool(got[:base].any()) and
+             not bool(got[base + window:].any()),
+             "rows": int(red.slot.numel()), "live_rows": int(live.sum()),
+             "table_rows": n_rows, "window": window, "base": base,
+             "cap_live": cap_live}
+    print(json.dumps({"phase": "segment_reduce_compact_table_vs_plain",
+                      "scene": label, **check}), flush=True)
+    if max(check["rel_l2_vs_plain"], check["rel_l2_vs_index_add"]) > 1e-5 \
+            or not all(check[k] for k in (
+                "bit_identical_runs", "bit_identical_to_compact_expanded",
+                "finite", "outside_window_zero")) or not live.any():
+        fail(f"K4's table mode disagrees with its plain version or "
+             f"index_add_ on {label}")
+    return check, idx, vals, lib
+
+
 def compact_bound_ms(live_rows, n_groups, nb):
     """K4's least time: the live rows gathered once (256 B each, one add
     per float), the (cap_live, 64) table written, each live row's slot and
     local id and each block's k0 read."""
     return roofline(live_rows * 64 * 4 + n_groups * 256 * 64 * 4
                     + live_rows * 8 + nb * 4, live_rows * 64)
+
+
+def table_bound_ms(live_rows, n_rows, window, nb):
+    """K4's table mode's least time: as compact_bound_ms, but the output is
+    the (n_rows, 64) parameter table, and the window's src_range is read."""
+    return roofline(live_rows * 64 * 4 + n_rows * 64 * 4 + live_rows * 8
+                    + window * 4 + nb * 4, live_rows * 64)
 
 
 def compare_frames(got, want, label):
@@ -586,11 +658,13 @@ def garden_window(gt, torch, dev, bd, binning, pf, sr, rows64_from_model,
         fail(f"garden window: overflow {overflow}, hits {mean_hits:.2f}, "
              f"losses {[float(x) for x in losses]}, grad norm {gnorm}")
     # remat "full": K1's residual twice per band per step (forward and the
-    # backward's recompute), K2 and K4 once each; no K3, no serving K1
+    # backward's recompute), K2 and K4 (its table mode) once each; no K3,
+    # no serving K1
     want = {"tile_forward": 0, "segment_reduce": 0,
             "tile_forward_residual": 2 * GARDEN_BANDS * TRAIN_K,
             "tile_backward": GARDEN_BANDS * TRAIN_K,
-            "segment_reduce_compact": GARDEN_BANDS * TRAIN_K}
+            "segment_reduce_compact": GARDEN_BANDS * TRAIN_K,
+            "segment_reduce_compact_table": GARDEN_BANDS * TRAIN_K}
     if window_launches != want:
         fail(f"garden window launches {window_launches}, expected {want}")
 
@@ -628,17 +702,48 @@ def garden_window(gt, torch, dev, bd, binning, pf, sr, rows64_from_model,
     k4_lib_ms = cuda_ms(lambda: lib.index_add_(0, idx, vals))
     k4_b_ms, k4_b_by = compact_bound_ms(check["live_rows"], n_groups,
                                         topo.red.k0.shape[0])
+    del idx, vals, lib
+    # K4's table mode, the step's route: the (N+1, 64) table gradient,
+    # beside the two-step route it replaces (compact sums, then the
+    # expansion) and index_add_ by Gaussian id
+    n_rows = GARDEN_N + 1
+    t_check, t_idx, t_vals, t_lib = check_table_reduce(
+        torch, sr, bar, topo.red, n_rows, "garden_window_band0")
+    table = {
+        "ms": cuda_ms(lambda: sr.segment_reduce_compact_table(
+            bar, topo.red, n_rows)),
+        "two_step_ms": cuda_ms(lambda: sr.expand_compact(
+            sr.segment_reduce_compact(bar, topo.red, n_groups), topo.red,
+            n_rows)),
+        "plain_ms": cuda_ms(lambda: sr.segment_reduce_compact_table_plain(
+            bar, topo.red, n_rows), n=3),
+        "library_ms": cuda_ms(lambda: t_lib.index_add_(0, t_idx, t_vals)),
+        "max_abs_err": t_check["max_abs_err"],
+        "launches": window_launches["segment_reduce_compact_table"]}
+    table["bound_ms"], table["bound_by"] = table_bound_ms(
+        t_check["live_rows"], n_rows, t_check["window"],
+        topo.red.k0.shape[0])
+    del t_idx, t_vals, t_lib
     for metric, ms in (("segment_reduce_compact_ms", k4_ms),
                        ("segment_reduce_compact_plain_ms", k4_plain_ms),
-                       ("segment_reduce_compact_index_add_ms", k4_lib_ms)):
+                       ("segment_reduce_compact_index_add_ms", k4_lib_ms),
+                       ("segment_reduce_compact_table_ms", table["ms"]),
+                       ("segment_reduce_compact_two_step_ms",
+                        table["two_step_ms"]),
+                       ("segment_reduce_compact_table_plain_ms",
+                        table["plain_ms"]),
+                       ("segment_reduce_compact_table_index_add_ms",
+                        table["library_ms"])):
         print(json.dumps({"metric": metric, "ms": ms, "card": name,
                           "power_limit": power}), flush=True)
     print(json.dumps({"phase": "garden_k4", "bound_ms": k4_b_ms,
                       "bound_by": k4_b_by,
+                      "table_bound_ms": table["bound_ms"],
+                      "table_bound_by": table["bound_by"],
                       "seconds": time.time() - t_phase}), flush=True)
     return (k4_ms, k4_plain_ms, k4_lib_ms, k4_b_ms, k4_b_by,
-            check["max_abs_err"], window_launches, garden_times, tin_err,
-            k2_err)
+            check["max_abs_err"], table, window_launches, garden_times,
+            tin_err, k2_err)
 
 
 def garden_kernel_times(torch, pf, chunks, rays, topo, cfg, name, power):
@@ -701,15 +806,20 @@ def main():
     def reset_launches():
         for fn in (pf.tile_forward, pf.tile_forward_residual,
                    pv.tile_backward, sr.segment_reduce,
-                   sr.segment_reduce_compact):
+                   sr.segment_reduce_compact,
+                   sr.segment_reduce_compact_table):
             fn.launches = 0
 
     def launches():
+        """Each wrapper's count; K4's two modes also summed as K4's."""
         return {"tile_forward": pf.tile_forward.launches,
                 "tile_forward_residual": pf.tile_forward_residual.launches,
                 "tile_backward": pv.tile_backward.launches,
                 "segment_reduce": sr.segment_reduce.launches,
-                "segment_reduce_compact": sr.segment_reduce_compact.launches}
+                "segment_reduce_compact": sr.segment_reduce_compact.launches
+                + sr.segment_reduce_compact_table.launches,
+                "segment_reduce_compact_table":
+                    sr.segment_reduce_compact_table.launches}
 
     def event_ms(fn):
         """One CUDA-event timing of fn (for the slow plain versions)."""
@@ -1111,9 +1221,8 @@ def main():
             nb = red.gloc.shape[0]
             n_live = k3_check["live_rows"]
             walked = int((red.gloc[:, 0] < sr.GROUP).sum())
-            k3_b_ms, k3_b_by = roofline(
-                n_live * 64 * 4 + k3.numel() * 4 + walked * sr.GROUP * 8
-                + nb * 4, n_live * 64)
+            k3_b_ms, k3_b_by = reduce_bound_ms(n_live, k3.shape[0], walked,
+                                               nb)
             print(json.dumps({"phase": "segment_reduce_bound",
                               "live_rows": n_live, "planned_rows":
                               int(red.slot.numel()), "walked_blocks": walked,
@@ -1214,13 +1323,16 @@ def main():
     t0 = time.time()
     small_sorted = small.sorted_for_camera(cam128, base)
     span128 = bd.BandedRenderer(128, 128, 2, base, span=True, device=dev)
-    k4_errs = []
+    k4_errs, k4_table_errs = [], []
     for b, topo_b in enumerate(span128.bind(small_sorted, cam128)):
         g = torch.Generator(device=dev).manual_seed(20 + b)
         bar_b = torch.randn((topo_b.pair_gauss.shape[0], 64), generator=g,
                             device=dev)
         k4_errs.append(check_compact_reduce(
             torch, sr, bar_b, topo_b.red,
+            f"3000_gaussians_128px_span_band{b}")[0]["max_abs_err"])
+        k4_table_errs.append(check_table_reduce(
+            torch, sr, bar_b, topo_b.red, small_sorted.num_gaussians + 1,
             f"3000_gaussians_128px_span_band{b}")[0]["max_abs_err"])
 
     def banded_grads(span, balance, remat):
@@ -1246,20 +1358,22 @@ def main():
           flush=True)
 
     # ---- 10. the garden-scale banded training window ----------------------
-    (k4_ms, k4_plain_ms, k4_lib_ms, k4_b_ms, k4_b_by, k4_err,
+    (k4_ms, k4_plain_ms, k4_lib_ms, k4_b_ms, k4_b_by, k4_err, k4_table,
      garden_launches, garden_times, *garden_errs) = garden_window(
         gt, torch, dev, bd, binning, pf, sr, rows64_from_model,
         reset_launches, launches, event_ms, name, power)
     k4_err = max(k4_errs + [k4_err])
+    k4_table["max_abs_err"] = max(k4_table_errs + [k4_table["max_abs_err"]])
     add_training_errs(garden_errs)
 
     # ---- 11. kernels -----------------------------------------------------
-    def entry(kname, src, replaces, n_launch, err, ms, p_ms, bnd, lib):
+    def entry(kname, src, replaces, n_launch, err, ms, p_ms, bnd, lib,
+              **extra):
         line = {"name": kname, "route": "cuda",
                 "source": f"{PKG}/csrc/{src}", "replaces": replaces,
                 "launches": n_launch, "max_abs_err": err, "ms": ms,
                 "plain_ms": p_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
-                "library_ms": lib}
+                "library_ms": lib, **extra}
         if len(bnd) > 2:  # the gate chain's kernels: the earlier count too
             line["bound_ms_chain72"] = bnd[2]
         if kname in garden_times:  # also at garden band 0's shapes
@@ -1285,10 +1399,13 @@ def main():
               "3dgvrt_lightfield_tpu/render/segreduce.py:129",
               train_launches["segment_reduce"], k3_err, k3_ms, k3_plain_ms,
               (k3_b_ms, k3_b_by), k3_lib_ms),
+        # launches of both modes; the times and bound of compact mode (the
+        # JAX kernel's function), table mode's (the step's route) beside
         entry("segment_reduce_compact", "segment_reduce_compact.cu",
               "3dgvrt_lightfield_tpu/render/segreduce.py:278",
-              garden_launches["segment_reduce_compact"], k4_err, k4_ms,
-              k4_plain_ms, (k4_b_ms, k4_b_by), k4_lib_ms),
+              garden_launches["segment_reduce_compact"],
+              max(k4_err, k4_table["max_abs_err"]), k4_ms, k4_plain_ms,
+              (k4_b_ms, k4_b_by), k4_lib_ms, table_mode=k4_table),
     ]}), flush=True)
     print(json.dumps({"phase": "done", "seconds_after_build":
                       time.time() - t_all}), flush=True)

@@ -12,9 +12,11 @@ scene) and prints JSON lines:
     residual, the loss and its cotangent, K2, K3, and the whole step of
     chip_smoke.py's training window (forward, backward, SGD).  The
     garden-scale banded step (--garden, chip_smoke.py's 5M window): per band
-    the gather, K1 with its residual, K2, K4 and the expansion back to the
-    table, then rows64_from_model forward and backward, Adam, and the whole
-    Trainer.step;
+    the gather, K1 with its residual, K2, K4's compact mode, K4's table
+    mode (the step's route to the parameter-table gradient) and the
+    two-step route it replaced (compact mode, then the expansion back to
+    the table), then rows64_from_model forward and backward, Adam, and the
+    whole Trainer.step;
   * the device-busy share from a torch.profiler trace of 3 frames or steps
     (kernel time over wall time) and the top CUDA kernels by device time.
 
@@ -176,9 +178,11 @@ def garden_stages(torch, card, dev):
                                          cfg),
             f"band{b}_segment_reduce_compact": lambda f=bar_flat, t=topo,
                 n=n_groups: sr.segment_reduce_compact(f, t.red, n),
-            f"band{b}_compact_reduce_and_expansion": lambda f=bar_flat,
-                t=topo: pg._bwd_segreduce_compact(rows.shape[0], t.red, f,
-                                                  "cuda"),
+            f"band{b}_compact_table": lambda f=bar_flat, t=topo:
+                pg._bwd_segreduce_compact(rows.shape[0], t.red, f, "cuda"),
+            f"band{b}_compact_two_step": lambda f=bar_flat, t=topo,
+                n=n_groups: sr.expand_compact(sr.segment_reduce_compact(
+                    f, t.red, n), t.red, rows.shape[0]),
         })
 
     def adam():

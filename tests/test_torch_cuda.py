@@ -22,7 +22,14 @@ kernel tolerances):
     across runs.
   * K4: relative L2 error <= 1e-5; bit-identical across runs; every output
     row defined after a NaN-poisoned allocator, the rows past the last live
-    compact id exactly zero.
+    compact id exactly zero.  Its table mode: the same, the compact sums
+    expanded through the live-id window bit for bit, and the table rows
+    outside the window exactly zero.
+  * K3 and both modes of K4 on synthetic plans (tests/reduce_layouts.py):
+    one Gaussian with thousands of rows, ids with no rows, an all-pad plan,
+    a window ending at the table's last row, slots clamped at P_pad - 1,
+    overflowed plans; relative L2 <= 1e-5, two runs bit-identical, every
+    row finite after a NaN-poisoned allocator.
   * The whole training step, kernels against plain versions, unbanded and
     banded (stride, span, balanced): relative L2 <= 1e-4 per parameter
     group.
@@ -44,6 +51,8 @@ from gvrt_tpu_torch.render import pallas_forward as pf  # noqa: E402
 from gvrt_tpu_torch.render import pallas_vjp as pv  # noqa: E402
 from gvrt_tpu_torch.render import segreduce as sr  # noqa: E402
 from gvrt_tpu_torch.render.tiled import _camera_mats  # noqa: E402
+
+import reduce_layouts  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -493,15 +502,94 @@ def test_banded_step_gradients_match_plain_path(cuda, span, balance, remat):
                               span=span, balance=balance, device=cuda)
         r._bound = held._bound
         model.zero_grad(set_to_none=True)
-        before = sr.segment_reduce_compact.launches
+        before = (sr.segment_reduce_compact.launches,
+                  sr.segment_reduce_compact_table.launches)
         out = r.render_bound(model)
         loss = ((out["rgb"] - 0.3) ** 2).mean() + 1e-2 * out["depth"].mean()
         loss.backward()
         torch.cuda.synchronize()
-        launches[impl] = sr.segment_reduce_compact.launches - before
+        # K4 in its table mode, once per band
+        launches[impl] = (sr.segment_reduce_compact.launches - before[0],
+                          sr.segment_reduce_compact_table.launches
+                          - before[1])
         grads[impl] = {k: getattr(model, k).grad.clone()
                        for k in gt.models.gaussians.LEAVES}
-    assert launches == {"cuda": 2, "torch": 0}
+    assert launches == {"cuda": (0, 2), "torch": (0, 0)}
     for k, want in grads["torch"].items():
         assert float(want.abs().max()) > 0, k
         assert _rel_l2(grads["cuda"][k], want) <= 1e-4, k
+
+
+#: card case -> (layout case of tests/reduce_layouts.py, twist): "tight"
+#: also overflows K3's plan (fewer rows than its groups need), "clamp" gives
+#: the cotangents fewer rows than the largest live slot, "last_row" asks
+#: table mode for a table that ends with the window's last row
+REDUCE_CASES = {
+    "heavy": ("heavy", None),
+    "no_rows": ("no_rows", None),
+    "all_pad": ("all_pad", None),
+    "window_start": ("window_start", None),
+    "window_to_last_row": ("window_end", "last_row"),
+    "clamped_slots": ("no_window", "clamp"),
+    "overflow": ("overflow", "tight"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REDUCE_CASES))
+def test_reduce_kernels_on_synthetic_plans(cuda, name):
+    case, twist = REDUCE_CASES[name]
+    lay = reduce_layouts.layout(11, **reduce_layouts.CASES[case])
+    arrays = [torch.from_numpy(a).to(cuda) for a in lay[:4]]
+    n, cap, cap_pad = lay[4:]
+    full, ovf3 = sr.build_reduce_plan(*arrays, n, cap, cap_pad,
+                                      1024 if twist == "tight" else 0)
+    compact, ovf4 = sr.build_reduce_plan_compact(
+        *arrays, n, cap, cap_pad, *reduce_layouts.compact_sizes(lay, case))
+    assert (int(ovf3) > 0) == (twist == "tight")
+    assert (int(ovf4) > 0) == (case == "overflow")
+    g = torch.Generator(device=cuda).manual_seed(40)
+    p_pad = cap_pad // 3 if twist == "clamp" else cap_pad
+    bar = torch.randn((p_pad, 64), generator=g, device=cuda)
+    if twist == "clamp":
+        assert int((compact.slot[compact.slot < cap_pad] >= p_pad).sum()) > 0
+    n_rows = n if twist == "last_row" else n + 1
+    n_groups = -(-(n + 1) // sr.GROUP)
+    n_groups_c = compact.out_shape.shape[0]
+    calls = {
+        "k3": (sr.segment_reduce,
+               lambda: sr.segment_reduce(bar, full, n_groups),
+               lambda: sr.segment_reduce_plain(bar, full, n_groups)),
+        "k4": (sr.segment_reduce_compact,
+               lambda: sr.segment_reduce_compact(bar, compact, n_groups_c),
+               lambda: sr.segment_reduce_compact_plain(bar, compact,
+                                                       n_groups_c)),
+        "k4_table": (sr.segment_reduce_compact_table,
+                     lambda: sr.segment_reduce_compact_table(bar, compact,
+                                                             n_rows),
+                     lambda: sr.segment_reduce_compact_table_plain(
+                         bar, compact, n_rows)),
+    }
+    outs = {}
+    for kern, (wrapper, run, plain) in calls.items():
+        torch.full((4 * (n + 1) * 64,), float("nan"), device=cuda)
+        before = wrapper.launches
+        got, again, want = run(), run(), plain()
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 2, kern
+        assert torch.equal(got, again), kern
+        assert bool(got.isfinite().all()), kern
+        assert _rel_l2(got, want) <= 1e-5, kern
+        outs[kern] = got
+    # table mode is compact mode's sums expanded through the window, bit
+    # for bit, and zero outside the window
+    table = outs["k4_table"]
+    assert torch.equal(table, sr.expand_compact(outs["k4"], compact, n_rows))
+    base, window = int(compact.base[0]), compact.src_range.shape[0]
+    assert not bool(table[:base].any()) and \
+        not bool(table[base + window:].any())
+    if twist == "last_row":
+        assert base + window == n_rows
+    if case == "all_pad":
+        assert not any(bool(o.any()) for o in outs.values())
+    else:
+        assert all(bool(o.any()) for o in outs.values())
