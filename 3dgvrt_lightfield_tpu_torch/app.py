@@ -4,8 +4,11 @@ Subcommands (the JAX package's CLI, as far as this port reaches):
 
   render     orbit or dataset-camera renders -> PNG sequence
   benchmark  warmup + timed fps loop, CSV out   (-b -bw -br -bf -bt)
+  eval       render dataset cameras + PSNR/SSIM vs ground truth (EVAL_QUALITY)
   info       device / scene info
-  train      Adam fine-tune on one card (self-distillation or --images-dir)
+  train      Adam or Adafactor fine-tune on one card (self-distillation or
+             --images-dir), optionally after refining the camera poses
+             (--optimize-poses, --perturb-poses)
 
 `--bands N` renders and trains in N sequential tile-row bands (bounded
 memory for garden-scale scenes, `render/banded.py`).  Everything runs on the
@@ -101,19 +104,11 @@ def _dump_poses(cams, path):
     print(path)
 
 
-def _save_hit_counts(hit_count, path):
-    """Per-pixel hit-count dump (ENABLE_HIT_COUNTS,
-    VulkanFullRT.cpp:2180-2195 writes rayHitCountsOutput.txt)."""
-    arr = hit_count.cpu().numpy()
-    with open(path, "w") as f:
-        for row in arr:
-            f.write(" ".join(str(int(v)) for v in row) + "\n")
-
-
 class _BandedFrames:
     """Per-frame banded rendering with a shared (max-merged) capacity plan
     and the overflow -> re-plan-once contract of TiledRenderer.render;
-    shared by `render` and `benchmark`.  Frames render under no_grad."""
+    shared by `render`, `benchmark` and `eval`.  Frames render under
+    no_grad."""
 
     def __init__(self, model, cams, requested_bands, impl):
         from .config import DEFAULT_CONFIG
@@ -156,6 +151,7 @@ def cmd_render(args):
     from .config import DEFAULT_CONFIG
     from .io.image import save_png
     from .render.tiled import TiledRenderer
+    from .utils.evaluate import save_hit_counts
     model = _load_model(args)
     cams = _cameras(args, model)[: args.frames]
     if args.bands:
@@ -174,8 +170,8 @@ def cmd_render(args):
         save_png(path, out["rgb"].cpu().numpy())
         print(path)
         if args.hit_counts:
-            _save_hit_counts(out["hit_count"],
-                             os.path.join(args.out, "rayHitCountsOutput.txt"))
+            save_hit_counts(out["hit_count"],
+                            os.path.join(args.out, "rayHitCountsOutput.txt"))
 
 
 def _device_name(device: torch.device) -> str:
@@ -213,6 +209,21 @@ def cmd_benchmark(args):
     print(f"rays/s : {rays * res.fps / 1e6:.2f}M")
 
 
+def cmd_eval(args):
+    from .utils.evaluate import evaluate_dirs, render_eval_set
+    model = _load_model(args)
+    cams = _cameras(args, model)[: args.frames]
+    # --bands renders through the bounded-memory banded renderer, as
+    # render and benchmark do
+    renderer = (_BandedFrames(model, cams, args.bands, args.impl)
+                if args.bands else None)
+    paths = render_eval_set(model, cams, args.out, impl=args.impl,
+                            renderer=renderer, device=model.device)
+    print(f"rendered {len(paths)} views to {args.out}")
+    if args.gt_dir:
+        evaluate_dirs(args.gt_dir, [args.out])
+
+
 def cmd_info(args):
     from .config import resolve_device
     print("torch:", torch.__version__)
@@ -225,14 +236,6 @@ def cmd_info(args):
         print(f"aabb: {pos.min(0)} .. {pos.max(0)}")
         keep = model.abnormal_mask().cpu().numpy()
         print(f"abnormal particles: {(~keep).sum()}")
-
-
-#: train options of the JAX CLI whose paths are not ported yet
-_NOT_PORTED = {
-    "optimize_poses": "pose refinement, ROADMAP.md section 1 item 9",
-    "perturb_poses": "pose refinement, ROADMAP.md section 1 item 9",
-    "devices": "the sharded trainer, ROADMAP.md section 1 item 11",
-}
 
 
 class _BandedEval:
@@ -269,13 +272,9 @@ def cmd_train(args):
     from .render.tiled import TiledRenderer
     from .train import TrainConfig, Trainer
     from .utils.metrics import psnr
-    for opt, where in _NOT_PORTED.items():
-        if getattr(args, opt):
-            raise SystemExit(f"train --{opt.replace('_', '-')}: not ported "
-                             f"yet ({where})")
-    if args.optimizer != "adam":
-        raise SystemExit(f"train --optimizer {args.optimizer}: not ported "
-                         f"yet (ROADMAP.md section 1 item 9)")
+    if args.devices:
+        raise SystemExit('train --devices: not ported yet (the sharded '
+                         'trainer, ROADMAP.md section 1, "Multi-device")')
     model = _load_model(args)
     cams = _cameras(args, model)
     if args.images_dir:
@@ -301,6 +300,22 @@ def cmd_train(args):
         r.plan(model, cams[:4])
         with torch.no_grad():
             targets = [r.render(model, c)["rgb"].cpu().numpy() for c in cams]
+    if args.optimize_poses:
+        # pose refinement: optionally perturb the dataset poses (the
+        # recovery demo), then recover each camera's 6-DOF delta through the
+        # ray cotangents before fine-tuning the Gaussians
+        from .train import optimize_camera_poses, perturb_cameras
+        if args.perturb_poses:
+            cams = perturb_cameras(cams, args.perturb_poses)
+            print(f"perturbed {len(cams)} poses by sigma_t="
+                  f"{args.perturb_poses} (recovery demo)")
+        cams, reports = optimize_camera_poses(
+            model, cams, targets, DEFAULT_CONFIG,
+            steps=args.optimize_poses, impl=args.impl)
+        improved = sum(1 for r in reports if r["loss1"] < r["loss0"])
+        print(f"pose-opt: {improved}/{len(reports)} cameras improved, "
+              f"mean loss {np.mean([r['loss0'] for r in reports]):.3e} -> "
+              f"{np.mean([r['loss1'] for r in reports]):.3e}")
     span = args.span_bands or args.balance_bands
     tc = TrainConfig(total_steps=args.steps, optimizer=args.optimizer,
                      banded_remat=args.banded_remat, span_bands=span,
@@ -412,7 +427,15 @@ def main(argv=None):
     pb.add_argument("--frames", type=int, default=1)
     pb.set_defaults(fn=cmd_benchmark)
 
-    pt = sub.add_parser("train", help="Adam fine-tune on one card")
+    pe = sub.add_parser("eval", help="EVAL_QUALITY: render + PSNR/SSIM")
+    _common(pe)
+    pe.add_argument("--out", default="results/evaluations/output")
+    pe.add_argument("--gt-dir", help="ground-truth PNG directory")
+    pe.add_argument("--frames", type=int, default=10 ** 6)
+    pe.set_defaults(fn=cmd_eval)
+
+    pt = sub.add_parser("train", help="Adam or Adafactor fine-tune on one "
+                                      "card")
     _common(pt)
     pt.add_argument("--images-dir", help="target PNGs named per camera")
     pt.add_argument("--steps", type=int, default=200)
@@ -420,8 +443,7 @@ def main(argv=None):
     pt.add_argument("--frames", type=int, default=16)
     pt.add_argument("--out", default="finetuned.ply")
     pt.add_argument("--optimizer", default="adam",
-                    choices=["adam", "adafactor"],
-                    help="adafactor is not ported yet")
+                    choices=["adam", "adafactor"])
     pt.add_argument("--ckpt-dir", help="checkpoint/resume directory")
     pt.add_argument("--ckpt-every", type=int, default=50,
                     help="save a checkpoint every N steps")
@@ -433,13 +455,17 @@ def main(argv=None):
                     help="pre-sort the model by image row for the first "
                          "camera (scene prep for --span-bands live-id "
                          "windows; one-time cost)")
-    # options of the JAX CLI whose paths are not ported yet: kept in the
-    # parser, refused at run time
+    # the sharded trainer is not ported yet: kept in the parser, refused at
+    # run time
     pt.add_argument("--devices", type=int, default=0, help="not ported yet")
     pt.add_argument("--optimize-poses", type=int, default=0,
-                    metavar="STEPS", help="not ported yet")
+                    metavar="STEPS",
+                    help="refine every camera pose for STEPS Adam steps "
+                         "through the ray gradients before fine-tuning")
     pt.add_argument("--perturb-poses", type=float, default=0.0,
-                    metavar="SIGMA", help="not ported yet")
+                    metavar="SIGMA",
+                    help="jitter the poses first (translation sigma, "
+                         "rotation sigma/3): the pose-recovery demo")
     pt.set_defaults(fn=cmd_train)
 
     pi = sub.add_parser("info", help="device + scene info")

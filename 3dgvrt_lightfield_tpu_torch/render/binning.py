@@ -485,6 +485,22 @@ def binned_scene(chunks: torch.Tensor, topo: BinTopology) -> BinnedScene:
     return BinnedScene(chunks, *topo)
 
 
+def bin_gaussians(act: ActivatedGaussians, w2c, proj, width: int,
+                  height: int, cfg: RenderConfig, capacity: int,
+                  capacity_padded: int, row_offset: int = 0,
+                  row_stride: int = 1) -> BinnedScene:
+    """Build the chunked, depth-sorted per-tile Gaussian lists in one call:
+    `bin_topology` (index structure, no gradient) then `gather_chunks` (the
+    gradient path).  Callers that render many frames of one camera hold
+    the topology and call `gather_chunks` per frame instead.  The reduce
+    plan is built only when grad is enabled (without it the chunks are
+    constants and nothing reads the plan)."""
+    topo = bin_topology(act, w2c, proj, width, height, cfg, capacity,
+                        capacity_padded, row_offset, row_stride,
+                        with_reduce_plan=torch.is_grad_enabled())
+    return binned_scene(gather_chunks(act, topo, cfg), topo)
+
+
 def _bucket_capacity(v: int, g: int, ratio: float = 1.25) -> int:
     """Round a capacity UP to the next step of a chunk-aligned geometric grid
     (ratio <= 1: exact chunk alignment).  Snapping re-plans to a few sizes
@@ -606,19 +622,28 @@ def plan_capacity(act: ActivatedGaussians, w2c, proj, width, height,
     return plan_capacity_from_table(tab, proj, width, height, cfg, slack, band)
 
 
-def tile_rays(camera, cfg: RenderConfig, device) -> torch.Tensor:
+def tile_rays(camera, cfg: RenderConfig, device, aabb=None) -> torch.Tensor:
     """Per-pixel rays + AABB clip range + SH basis, tiled to (T, 24, R).
 
     Rows 0:8 are [o, d, tmin, tmax]; rows 8:24 are the 16 SH basis values of
     the ray direction (zero above (sh_degree+1)^2), so the tile kernel never
-    re-evaluates the basis polynomials per chunk."""
-    ts = cfg.tile_size
+    re-evaluates the basis polynomials per chunk.  The clip box is `aabb`,
+    else cfg.aabb."""
     o, d = camera.rays()
-    h, w = o.shape[:2]
-    assert h % ts == 0 and w % ts == 0, (h, w, ts)
     o = torch.as_tensor(np.ascontiguousarray(o), device=device)
     d = torch.as_tensor(np.ascontiguousarray(d), device=device)
-    tmin, tmax = intersect_aabb(cfg.aabb, o, d)
+    return tile_ray_rows(o, d, cfg, aabb)
+
+
+def tile_ray_rows(o: torch.Tensor, d: torch.Tensor, cfg: RenderConfig,
+                  aabb=None) -> torch.Tensor:
+    """(H, W, 3) origins and unit directions -> the (T, 24, R) tile rays of
+    `tile_rays`, differentiable in both (pose refinement builds them in the
+    graph, `train/pose.py`)."""
+    ts = cfg.tile_size
+    h, w = o.shape[:2]
+    assert h % ts == 0 and w % ts == 0, (h, w, ts)
+    tmin, tmax = intersect_aabb(aabb or cfg.aabb, o, d)
     basis = sh_basis_components(d[..., 0], d[..., 1], d[..., 2],
                                 cfg.sh_degree)
     basis += [torch.zeros_like(d[..., 0])] * (SH_MAX_NUM_COEFFS - len(basis))
@@ -637,13 +662,14 @@ def untile(img_tiled: torch.Tensor, width: int, height: int, ts: int):
 
 
 def band_rays(camera, cfg: RenderConfig, stride: int, device,
-              mode: str = "stride") -> torch.Tensor:
+              mode: str = "stride", aabb=None) -> torch.Tensor:
     """Tiled rays split into `stride` tile-row bands: (stride, local_tiles,
     RAY_ROWS, R).  mode="stride": band d owns the global tile rows d,
     d + stride, ...; mode="contig": the contiguous rows
-    [d * ny / stride, (d + 1) * ny / stride) (span banding)."""
+    [d * ny / stride, (d + 1) * ny / stride) (span banding).  The clip box
+    is `aabb`, else cfg.aabb."""
     ts = cfg.tile_size
-    rays = tile_rays(camera, cfg, device)             # (ny*nx, 24, R)
+    rays = tile_rays(camera, cfg, device, aabb)       # (ny*nx, 24, R)
     ny, nx = camera.height // ts, camera.width // ts
     assert ny % stride == 0, (ny, stride)
     if mode == "contig":

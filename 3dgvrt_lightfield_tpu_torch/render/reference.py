@@ -4,7 +4,9 @@ Evaluates every Gaussian against every ray (O(N * rays)), sorts hits by exact
 max-response depth and composites front to back with the reference's
 termination criteria (raygen.rgen:113-189 + anyhit.rahit:40-71 +
 gaussianfunctions.glsl:153-229).  Slow and simple: the tiled renderer's tests
-hold it against this.  Forward only, under `torch.no_grad()`.
+hold it against this.  Differentiable by autograd when grad is enabled and
+the model's leaves require grad (the ground truth for gradients, as in the
+JAX package); under `torch.no_grad()` it builds no graph.
 """
 
 from __future__ import annotations
@@ -43,7 +45,6 @@ def render_rays(gaussians: ActivatedGaussians, ray_o: torch.Tensor,
                             t_min=tmin, t_max=tmax)
 
 
-@torch.no_grad()
 def render_image(model: GaussianModel, camera,
                  cfg: RenderConfig = DEFAULT_CONFIG,
                  chunk: Optional[int] = None, device=None):

@@ -1,4 +1,5 @@
-"""Fine-tuning loop: Adam on all Gaussian parameter groups, on one card.
+"""Fine-tuning loop: Adam or Adafactor on all Gaussian parameter groups, on
+one card.
 
 Counterpart of the JAX package's `train/trainer.py` for one card:
 per-group learning rates of the standard 3DGS recipe (position lr scaled by
@@ -13,8 +14,7 @@ loss.  Two steps:
     for `refresh_every` steps, with the compact gradient reduce (K4).
 
 Not ported yet, and refused with NotImplementedError rather than dropped:
-the sharded step (`mesh`, ROADMAP.md section 1 item 11) and Adafactor
-(`optimizer="adafactor"`, item 9).
+the sharded step (`mesh`, ROADMAP.md section 1, "Multi-device").
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..config import DEFAULT_CONFIG, RenderConfig, resolve_device
@@ -49,7 +50,8 @@ class TrainConfig:
     refresh_every: int = 10
     #: band-scan recompute policy for banded training
     banded_remat: str = "full"
-    #: "adam" (ported) | "adafactor" (not yet)
+    #: "adam" | "adafactor" (factored second moments where a leaf has two
+    #: dimensions >= 128; every GaussianModel leaf takes the unfactored rule)
     optimizer: str = "adam"
     #: span banding for n_bands > 1
     span_bands: bool = False
@@ -57,45 +59,137 @@ class TrainConfig:
     balance_bands: bool = False
 
 
-class GroupAdam(torch.optim.Adam):
-    """Per-parameter-group Adam (eps 1e-15) with the means group's learning
-    rate on optax's `exponential_decay(lr_means * scene_extent, total_steps,
-    lr_means_final_scale)`: lr * rate ** (updates / total_steps), not
-    staircase, where `updates` counts the steps taken before this one."""
+def _param_groups(model: GaussianModel, tc: TrainConfig):
+    """The six leaves as parameter groups with their learning rates (the
+    means' is the schedule's start; `_MeansDecay` moves it)."""
+    lrs = {"means": tc.lr_means * tc.scene_extent, "scales_log": tc.lr_scales,
+           "quats": tc.lr_quats, "opacity_logit": tc.lr_opacity,
+           "sh_dc": tc.lr_sh_dc, "sh_rest": tc.lr_sh_rest}
+    return [{"params": [getattr(model, k)], "lr": lr, "name": k}
+            for k, lr in lrs.items()]
 
-    def __init__(self, model: GaussianModel, tc: TrainConfig):
+
+class _MeansDecay:
+    """The means group's learning rate on optax's `exponential_decay(
+    lr_means * scene_extent, total_steps, lr_means_final_scale)`: lr * rate
+    ** (updates / total_steps), not staircase, where `updates` counts the
+    steps taken before this one."""
+
+    def _init_decay(self, tc: TrainConfig):
         self.means_lr0 = tc.lr_means * tc.scene_extent
         self.decay_rate, self.decay_steps = (tc.lr_means_final_scale,
                                              tc.total_steps)
-        lrs = {"means": self.means_lr0, "scales_log": tc.lr_scales,
-               "quats": tc.lr_quats, "opacity_logit": tc.lr_opacity,
-               "sh_dc": tc.lr_sh_dc, "sh_rest": tc.lr_sh_rest}
-        super().__init__([{"params": [getattr(model, k)], "lr": lr,
-                           "name": k} for k, lr in lrs.items()], eps=1e-15)
 
     def updates(self) -> int:
-        """Steps taken so far (the Adam step count of the means)."""
+        """Steps taken so far (the step count of the means)."""
         state = self.state.get(self.param_groups[0]["params"][0], {})
         return int(state.get("step", 0))
 
-    @torch.no_grad()
-    def step(self, closure=None):
+    def _decay_means_lr(self):
         self.param_groups[0]["lr"] = self.means_lr0 * self.decay_rate ** (
             self.updates() / self.decay_steps)
+
+
+class GroupAdam(_MeansDecay, torch.optim.Adam):
+    """Per-parameter-group Adam (eps 1e-15), the means on the decayed
+    schedule."""
+
+    def __init__(self, model: GaussianModel, tc: TrainConfig):
+        self._init_decay(tc)
+        super().__init__(_param_groups(model, tc), eps=1e-15)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        self._decay_means_lr()
         return super().step(closure)
 
 
-def _check_optimizer(tc: TrainConfig):
-    if tc.optimizer != "adam":
-        raise NotImplementedError(
-            f"optimizer {tc.optimizer!r} is not ported yet: Adafactor is "
-            f"ROADMAP.md section 1 item 9")
+#: optax 0.2.6 `scale_by_factored_rms` defaults (the JAX package's
+#: `adafactor(learning_rate=lr, multiply_by_parameter_scale=False)`)
+_DECAY_EXPONENT, _EPS, _MIN_DIM_TO_FACTOR = 0.8, 1e-30, 128
 
 
-def make_optimizer(tc: TrainConfig, model: GaussianModel) -> GroupAdam:
-    """Per-parameter-group Adam over the model's six leaves."""
-    _check_optimizer(tc)
-    return GroupAdam(model, tc)
+def _factored_dims(shape):
+    """optax's `_factored_dims`: the (second-largest, largest) axes when the
+    second-largest dimension is at least 128, else None (unfactored)."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < _MIN_DIM_TO_FACTOR:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+def scale_by_factored_rms(grad: torch.Tensor, state: dict) -> torch.Tensor:
+    """One step of optax's `scale_by_factored_rms` on one leaf: updates the
+    leaf's state (step, and v or v_row/v_col) in place, returns the scaled
+    gradient.  The decay is 1 - (step + 1) ** -0.8 in f32, as optax forms
+    it."""
+    dims = _factored_dims(tuple(grad.shape))
+    if "step" not in state:
+        if dims is None:
+            state["v"] = torch.zeros_like(grad)
+        else:
+            d1, d0 = dims
+            state["v_row"] = grad.new_zeros(np.delete(grad.shape, d0).tolist())
+            state["v_col"] = grad.new_zeros(np.delete(grad.shape, d1).tolist())
+        state["step"] = 0
+    decay = np.float32(1.0) - np.float32(state["step"] + 1) ** np.float32(
+        -_DECAY_EXPONENT)
+    keep, take = float(decay), float(np.float32(1.0) - decay)
+    state["step"] += 1
+    grad_sqr = grad * grad + _EPS
+    if dims is None:
+        v = state["v"]
+        v.copy_(keep * v + take * grad_sqr)
+        return grad * v.pow(-0.5)
+    d1, d0 = dims
+    v_row, v_col = state["v_row"], state["v_col"]
+    v_row.copy_(keep * v_row + take * grad_sqr.mean(dim=d0))
+    v_col.copy_(keep * v_col + take * grad_sqr.mean(dim=d1))
+    reduced_d1 = d1 - 1 if d1 > d0 else d1
+    row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)).pow(-0.5)
+    return (grad * row_factor.unsqueeze(d0)
+            * v_col.pow(-0.5).unsqueeze(d1))
+
+
+class GroupAdafactor(_MeansDecay, torch.optim.Optimizer):
+    """Per-parameter-group Adafactor, the means on the decayed schedule:
+    optax 0.2.6's `adafactor(learning_rate=lr,
+    multiply_by_parameter_scale=False)`, a chain of `scale_by_factored_rms`,
+    `clip_by_block_rms(1.0)` (u / max(1, rms(u)) per leaf), the learning
+    rate and a negation.  (`torch.optim.Adafactor` follows another variant
+    of the paper.)"""
+
+    def __init__(self, model: GaussianModel, tc: TrainConfig):
+        self._init_decay(tc)
+        super().__init__(_param_groups(model, tc), {})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        self._decay_means_lr()
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                u = scale_by_factored_rms(p.grad, self.state[p])
+                u = u / torch.clamp_min((u * u).mean().sqrt(), 1.0)
+                p.add_(u, alpha=-group["lr"])
+        return loss
+
+
+_OPTIMIZERS = {"adam": GroupAdam, "adafactor": GroupAdafactor}
+
+
+def make_optimizer(tc: TrainConfig, model: GaussianModel):
+    """Per-parameter-group Adam or Adafactor over the model's six leaves."""
+    if tc.optimizer not in _OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {tc.optimizer!r}")
+    return _OPTIMIZERS[tc.optimizer](model, tc)
 
 
 def _image_loss(rgb, target, tc: TrainConfig) -> torch.Tensor:
@@ -115,7 +209,7 @@ def _batch_loss(act, cams: CameraBatch, targets: torch.Tensor, width, height,
 
 
 class Trainer:
-    """Adam fine-tuner on one card.
+    """Adam (or Adafactor) fine-tuner on one card.
 
     Usage:
         t = Trainer(width, height, cfg, tc, capacity)
@@ -139,9 +233,8 @@ class Trainer:
                  impl: str = "auto", n_bands: int = 1, device=None):
         if mesh is not None:
             raise NotImplementedError(
-                "the sharded train step (mesh) is not ported yet: ROADMAP.md "
-                "section 1 item 11")
-        _check_optimizer(tc)
+                'the sharded train step (mesh) is not ported yet: ROADMAP.md '
+                'section 1, "Multi-device"')
         self.width, self.height, self.cfg, self.tc = width, height, cfg, tc
         self.cap, self.cap_pad = capacity
         self.device = resolve_device(device)

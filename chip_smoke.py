@@ -34,7 +34,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      steps of rows64_from_model -> gather_from_rows -> forward_dispatch ->
      L2 loss against 0.3 in tiled space -> backward (K2, K3) -> SGD with
      lr 1e-12, launch counts read around it; then its CUDA-event time and
-     the kernels' times at the frame's shapes;
+     the kernels' times at the frame's shapes; K2 with the ray cotangents
+     (pose refinement's instances) on the same inputs against its plain
+     version, and timed A B B A against the instances without them;
   6. K3 against its plain version and index_add_ on the window's real
      per-slot cotangents;
   7. the whole-step gradient, kernels against plain versions, on a
@@ -42,6 +44,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   8. the training entry point: the CLI trains the PLY for 3 steps at
      1920x1088 against the phase-4 renders and writes a PLY, unbanded and
      with --bands 2 --span-bands --sort-scene;
+ 8b. pose refinement of the full-width frame: the phase-3 camera perturbed
+     (perturb_cameras, sigma_t 0.02, seed 0) against the unperturbed
+     frame's rgb, 20 steps of optimize_camera_poses at lr 3e-3 (the loss
+     must fall), launch counts read around it (K1 serving once for loss0,
+     K1's residual and K2 with ray cotangents once per step); the first
+     step's pose gradient, kernels against plain versions; the CUDA-event
+     time of one pose step;
+ 8c. the CLI trains with pose refinement and Adafactor: train --frames 4
+     --steps 3 --optimizer adafactor --optimize-poses 10 --perturb-poses
+     0.02 against the phase-4 renders;
+ 8d. the evaluation entry point: the CLI's eval of 4 frames, unbanded,
+     then with --bands 4 and --gt-dir on the first: every view compared,
+     every one identical;
   9. K4, in both modes, against its plain versions and index_add_ on the
      two span bands of a 3000-Gaussian 128^2 scene, and the banded step's
      gradients, kernels against plain versions, on stride, span and
@@ -109,6 +124,13 @@ OPS_PER_HIT = 96 + 6 + 2 + 2 + 10
 #: geometry columns 30, 48 SH column products and the 61 column sums over
 #: rays (FMA = 2).  Per pair K2 needs the gate chain as K1 does.
 OPS_PER_HIT_BWD = 99 + 10 + 6 + 14 + 9 + 17 + 42 + 30 + 48 + 61
+#: K2's ray cotangents per composited pair, counted from
+#: csrc/tile_backward.cu (RAYG): the origin and direction rows, 2 x 3 x 3
+#: FMAs, and the 16 basis rows, 16 x 3 FMAs (FMA = 2)
+OPS_PER_HIT_RAYG = 2 * (2 * 3 * 3 + 16 * 3)
+#: pose refinement of the full-width frame: Adam steps, lr, translation
+#: sigma of the perturbation
+POSE_STEPS, POSE_LR, POSE_SIGMA = 20, 3e-3, 0.02
 #: visited chunks per batch of chain_counts
 COUNT_BATCH = 512
 #: the training window of bench.py: K steps per topology refresh, SGD lr
@@ -251,19 +273,23 @@ def roofline(nbytes, ops):
                                        else "operations")
 
 
-def bound_bwd_ms(binned, rays, acc, cfg, n):
+def bound_bwd_ms(binned, rays, acc, cfg, n, ray_grads=False):
     """K2's least time: the gate chain as the data needs it (chain_counts)
     and OPS_PER_HIT_BWD per composited pair, against the chunk rows of the
-    visited runs, rays, T_in and bar_acc read and bar_chunks written;
-    returns (ms, bound by, ms with the whole chain on every real pair)."""
+    visited runs, rays, T_in and bar_acc read and bar_chunks written; with
+    `ray_grads` also the (T, 24, R) ray cotangents written and
+    OPS_PER_HIT_RAYG more per composited pair.  Returns (ms, bound by, ms
+    with the whole chain on every real pair)."""
     from gvrt_tpu_torch.render.pallas_forward import tile_chunk_runs
     _, count = tile_chunk_runs(binned.tile_counts, binned.chunks.shape[0],
                                cfg.chunk_size)
     r = rays.shape[2]
     nbytes = (int(count.sum()) * cfg.chunk_size * 64 * 4 + rays.numel() * 4
               + binned.chunks.shape[0] * r * 4 + acc.numel() * 4
-              + binned.chunks.numel() * 4 + 2 * binned.tile_counts.numel() * 4)
-    ops, ops72 = chain_ops(n, OPS_PER_HIT_BWD)
+              + binned.chunks.numel() * 4 + 2 * binned.tile_counts.numel() * 4
+              + (rays.numel() * 4 if ray_grads else 0))
+    ops, ops72 = chain_ops(n, OPS_PER_HIT_BWD
+                           + (OPS_PER_HIT_RAYG if ray_grads else 0))
     return (*roofline(nbytes, ops), roofline(nbytes, ops72)[0])
 
 
@@ -1175,6 +1201,42 @@ def main():
                                     train_n)
             del bar_p
 
+            # K2 with the ray cotangents on the same inputs: against its
+            # plain version, then A B B A against the instances without
+            rg = base.replace(ray_gradients=True)
+            bar_k2r, bar_rays_k = pv.tile_backward(
+                chunks_t, full_rays, topo.tile_counts, t_in, bar, rg)
+            k2r_plain_ms, (bar_pr, bar_rays_p) = event_ms(
+                lambda: pv._backward_plain(chunks_t, full_rays,
+                                           topo.tile_counts, t_in, bar, rg))
+            k2r = {"rel_l2_rays": rel_l2(bar_rays_k, bar_rays_p),
+                   "rel_l2_chunks": rel_l2(bar_k2r, bar_pr),
+                   "max_abs_err": max(
+                       float((bar_rays_k - bar_rays_p).abs().max()),
+                       float((bar_k2r - bar_pr).abs().max())),
+                   "chunks_bit_identical_to_without": torch.equal(bar_k2r,
+                                                                  bar_k2),
+                   "finite": bool(bar_rays_k.isfinite().all()),
+                   "plain_ms": k2r_plain_ms}
+            del bar_k2r, bar_rays_k, bar_pr, bar_rays_p
+            ab = {"without": [], "with": []}
+            for key in ("without", "with", "with", "without"):
+                cfg_k = rg if key == "with" else base
+                ab[key].append(cuda_ms(lambda: pv.tile_backward(
+                    chunks_t, full_rays, topo.tile_counts, t_in, bar,
+                    cfg_k)))
+            k2r["ms"] = float(np.mean(ab["with"]))
+            k2r["ms_without"] = float(np.mean(ab["without"]))
+            k2r["bound_ms"], k2r["bound_by"], _ = bound_bwd_ms(
+                scene_t, full_rays, acc_t, base, train_n, ray_grads=True)
+            print(json.dumps({"phase": "tile_backward_ray_gradients",
+                              "abba_ms": ab, **k2r, "card": name,
+                              "power_limit": power}), flush=True)
+            if max(k2r["rel_l2_rays"], k2r["rel_l2_chunks"]) > 1e-4 or \
+                    not k2r["finite"]:
+                fail(f"K2 with ray cotangents disagrees with its plain "
+                     f"version at full width: {k2r}")
+
             # ---- 6. K3 on the window's real cotangents -------------------
             bar_flat = captured[0].contiguous()
             red = topo.red
@@ -1315,6 +1377,123 @@ def main():
                 loaded.num_gaussians != FULL_N:
             fail(f"CLI train --bands: psnr {psnrs}, {loaded.num_gaussians} "
                  f"gaussians\n{proc.stdout}")
+
+        # ---- 8b. pose refinement of the full-width frame -----------------
+        from gvrt_tpu_torch.train import pose as tpose
+        t0 = time.time()
+        bad = gt.train.perturb_cameras([cam], POSE_SIGMA, seed=0)[0]
+        reset_launches()
+        _, reports = gt.train.optimize_camera_poses(
+            model, [bad], [out["rgb"]], base, steps=POSE_STEPS, lr=POSE_LR,
+            verbose=False)
+        torch.cuda.synchronize()
+        pose_launches = launches()
+        pose_rep = reports[0]
+        bound = tpose.bind_pose(model, bad, out["rgb"], base)
+
+        def pose_grads(impl):
+            """d loss / d (delta_t, delta_r) at the first step (delta 0)."""
+            poison_allocator(torch, 4 * (bound.binned.chunks.numel()
+                                         + 2 * full_rays.numel()), dev)
+            t = torch.zeros(3, device=dev, requires_grad=True)
+            r = torch.zeros(3, device=dev, requires_grad=True)
+            return [x.detach() for x in torch.autograd.grad(
+                tpose.pose_loss(bound, t, r, impl), (t, r))]
+
+        g_k = pose_grads("cuda")
+        pose_plain_ms, g_p = event_ms(lambda: pose_grads("torch"))
+        pose_rel = {"t": rel_l2(g_k[0], g_p[0]), "r": rel_l2(g_k[1], g_p[1])}
+        t_s = torch.zeros(3, device=dev, requires_grad=True)
+        r_s = torch.zeros(3, device=dev, requires_grad=True)
+        pose_opt = torch.optim.Adam([t_s, r_s], lr=POSE_LR, eps=1e-8)
+
+        def pose_step():
+            pose_opt.zero_grad(set_to_none=True)
+            tpose.pose_loss(bound, t_s, r_s, "cuda").backward()
+            pose_opt.step()
+
+        pose_step_ms = cuda_ms(pose_step)
+        print(json.dumps({
+            "phase": "pose_refine", "steps": POSE_STEPS, "lr": POSE_LR,
+            "sigma_t": POSE_SIGMA, **pose_rep, "launches": pose_launches,
+            "launches_per_step": {
+                k: pose_launches[k] / POSE_STEPS
+                for k in ("tile_forward_residual", "tile_backward")},
+            "grad_kernel": [x.tolist() for x in g_k],
+            "grad_plain": [x.tolist() for x in g_p],
+            "grad_rel_l2": pose_rel, "grad_plain_ms": pose_plain_ms,
+            "empty_tiles": int((bound.binned.tile_counts == 0).sum()),
+            "seconds": time.time() - t0}), flush=True)
+        report("pose_step_ms", pose_step_ms)
+        want = {"tile_forward": 1, "tile_forward_residual": POSE_STEPS,
+                "tile_backward": POSE_STEPS, "segment_reduce": 0,
+                "segment_reduce_compact": 0,
+                "segment_reduce_compact_table": 0}
+        if pose_launches != want:
+            fail(f"pose refinement launches {pose_launches}, expected {want}")
+        if not all(np.isfinite(pose_rep[k]) for k in pose_rep) or \
+                not pose_rep["loss1"] < pose_rep["loss0"]:
+            fail(f"pose refinement did not lower the loss: {pose_rep}")
+        if not all(bool(x.isfinite().all()) and float(x.abs().max()) > 0
+                   for x in g_k + g_p) or max(pose_rel.values()) > 1e-4:
+            fail(f"pose gradient, kernels against plain versions: "
+                 f"{pose_rel}, {g_k}, {g_p}")
+        del bound, pose_opt, t_s, r_s
+
+        # ---- 8c. the CLI trains with pose refinement and Adafactor -------
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", PKG, "train", "--ply", ply, "--width",
+             str(FULL_W), "--height", str(FULL_H), "--frames", "4",
+             "--steps", "3", "--batch", "1", "--images-dir", out_dir,
+             "--optimizer", "adafactor", "--optimize-poses", "10",
+             "--perturb-poses", "0.02", "--out", tuned], cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"CLI train --optimize-poses --optimizer adafactor failed:\n"
+                 f"{proc.stdout}\n{proc.stderr}")
+        psnrs = [float(line.split("psnr")[1]) for line in
+                 proc.stdout.splitlines() if "psnr" in line]
+        summary = [line for line in proc.stdout.splitlines()
+                   if line.startswith("pose-opt:")]
+        print(json.dumps({"phase": "cli_train_pose_adafactor",
+                          "pose_opt": summary, "psnr": psnrs,
+                          "seconds": time.time() - t0}), flush=True)
+        if not summary or "cameras improved" not in summary[0] or \
+                not psnrs or not all(np.isfinite(psnrs)):
+            fail(f"CLI train with pose refinement and Adafactor: "
+                 f"{summary}, psnr {psnrs}\n{proc.stdout}")
+
+        # ---- 8d. the CLI's eval, unbanded and banded ----------------------
+        t0 = time.time()
+        evals = {}
+        for label, extra in (("unbanded", []),
+                             ("bands4", ["--bands", "4", "--gt-dir"])):
+            eval_dir = os.path.join(tmp, f"eval_{label}")
+            args = extra + [evals["unbanded"][0]] if extra else []
+            proc = subprocess.run(
+                [sys.executable, "-m", PKG, "eval", "--ply", ply, "--width",
+                 str(FULL_W), "--height", str(FULL_H), "--frames", "4",
+                 "--out", eval_dir, *args], cwd=ROOT, capture_output=True,
+                text=True, timeout=600)
+            if proc.returncode != 0:
+                fail(f"CLI eval ({label}) failed:\n{proc.stdout}\n"
+                     f"{proc.stderr}")
+            evals[label] = (eval_dir, proc.stdout)
+        views = [line for line in evals["bands4"][1].splitlines()
+                 if line.startswith("r_") and "PSNR=" in line]
+        pngs = sorted(os.listdir(evals["unbanded"][0]))
+        same = [bool(np.array_equal(
+            gt.io.load_png(os.path.join(evals["unbanded"][0], f)),
+            gt.io.load_png(os.path.join(evals["bands4"][0], f))))
+            for f in pngs]
+        print(json.dumps({"phase": "cli_eval", "views": views,
+                          "identical": same,
+                          "seconds": time.time() - t0}), flush=True)
+        if pngs != [f"r_{i}.png" for i in range(4)] or len(views) != 4 or \
+                not all("PSNR=inf" in v for v in views) or not all(same):
+            fail(f"CLI eval --bands 4 against the unbanded views: {views}, "
+                 f"identical {same}")
     del model, full, renderer, trainer_r, train_model, topo, scene_t
     del chunks_t, acc_t, t_in, bar, captured, bar_flat, out, acc
     torch.cuda.empty_cache()
@@ -1392,9 +1571,16 @@ def main():
               train_launches["tile_forward_residual"],
               max(tin_errs + [res_err]), res_ms, res_plain_ms,
               res_bound, None),
+        # the ray-cotangent instances beside: launches on the pose path
         entry("tile_backward", "tile_backward.cu", f"{vjp}:99",
               train_launches["tile_backward"], max(k2_errs + [k2_err]),
-              k2_ms, k2_plain_ms, k2_bound, None),
+              k2_ms, k2_plain_ms, k2_bound, None, ray_gradients={
+                  "launches": pose_launches["tile_backward"],
+                  "max_abs_err": k2r["max_abs_err"], "ms": k2r["ms"],
+                  "ms_without": k2r["ms_without"],
+                  "plain_ms": k2r["plain_ms"],
+                  "bound_ms": k2r["bound_ms"],
+                  "bound_by": k2r["bound_by"], "library_ms": None}),
         entry("segment_reduce", "segment_reduce.cu",
               "3dgvrt_lightfield_tpu/render/segreduce.py:129",
               train_launches["segment_reduce"], k3_err, k3_ms, k3_plain_ms,

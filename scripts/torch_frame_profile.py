@@ -16,13 +16,17 @@ scene) and prints JSON lines:
     mode (the step's route to the parameter-table gradient) and the
     two-step route it replaced (compact mode, then the expansion back to
     the table), then rows64_from_model forward and backward, Adam, and the
-    whole Trainer.step;
+    whole Trainer.step.  A pose step (--pose, chip_smoke.py's pose
+    refinement: the frame's camera perturbed, the unperturbed rgb as
+    target): bind_pose, the in-graph rays and their backward, K1 with its
+    residual, K2 with ray cotangents, and the whole step (loss, backward,
+    Adam on the 6-DOF delta);
   * the device-busy share from a torch.profiler trace of 3 frames or steps
     (kernel time over wall time) and the top CUDA kernels by device time.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 scripts/torch_frame_profile.py [--train | --garden]
+    python3 scripts/torch_frame_profile.py [--train | --garden | --pose]
 """
 
 import json
@@ -131,6 +135,56 @@ def train_stages(torch, card, model, cam, cfg):
     profile(torch, card, step, "train_step")
 
 
+def pose_stages(torch, card, model, cam, cfg):
+    """Stage split of chip_smoke.py's pose step at full width."""
+    import chip_smoke
+    import gvrt_tpu_torch as gt
+    from gvrt_tpu_torch.render import pallas_forward as pf
+    from gvrt_tpu_torch.render import pallas_vjp as pv
+    from gvrt_tpu_torch.train import pose as tpose
+
+    dev = model.device
+    with torch.no_grad():
+        target = gt.render.render_image_tiled(model, cam, cfg,
+                                              device=dev)["rgb"]
+    bad = gt.train.perturb_cameras([cam], chip_smoke.POSE_SIGMA, seed=0)[0]
+    bound = tpose.bind_pose(model, bad, target, cfg)
+    b, rcfg = bound.binned, bound.cfg
+    t = torch.zeros(3, device=dev, requires_grad=True)
+    r = torch.zeros(3, device=dev, requires_grad=True)
+    rays = tpose._posed_rays(bound.ndc, bad, rcfg, t, r)
+    bar_rays = torch.randn_like(rays)
+    with torch.no_grad():
+        acc, t_in = pf.tile_forward_residual(b.chunks, rays.detach(),
+                                             b.tile_counts, rcfg)
+        bar = torch.zeros_like(acc)
+        bar[:, 0:3] = 2.0 * (acc[:, 0:3] - bound.target) / \
+            bound.target.numel()
+    opt = torch.optim.Adam([t, r], lr=chip_smoke.POSE_LR, eps=1e-8)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        tpose.pose_loss(bound, t, r, "cuda").backward()
+        opt.step()
+
+    stages = {
+        "bind_pose": lambda: tpose.bind_pose(model, bad, target, cfg),
+        "posed_rays": lambda: tpose._posed_rays(bound.ndc, bad, rcfg,
+                                                t.detach(), r.detach()),
+        "posed_rays_backward": lambda: torch.autograd.grad(
+            rays, (t, r), bar_rays, retain_graph=True),
+        "tile_forward_residual": lambda: pf.tile_forward_residual(
+            b.chunks, rays.detach(), b.tile_counts, rcfg),
+        "tile_backward_ray_gradients": lambda: pv.tile_backward(
+            b.chunks, rays.detach(), b.tile_counts, t_in, bar, rcfg),
+        "pose_step": step,
+    }
+    for name, fn in stages.items():
+        print(json.dumps({"stage": name, "ms": chip_smoke.cuda_ms(fn),
+                          "card": card}), flush=True)
+    profile(torch, card, step, "pose_step")
+
+
 def garden_stages(torch, card, dev):
     """Stage split of chip_smoke.py's garden-scale banded training step."""
     import chip_smoke
@@ -225,6 +279,8 @@ def main():
     cam = gt.Camera.from_fovy(w, h, 50.0, np.eye(4))
     if "--train" in sys.argv[1:]:
         return train_stages(torch, card, model, cam, cfg)
+    if "--pose" in sys.argv[1:]:
+        return pose_stages(torch, card, model, cam, cfg)
     r = TiledRenderer(w, h, cfg, device=dev)
     r.plan(model, [cam])
     w2c, proj = _camera_mats(cam)

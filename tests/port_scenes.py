@@ -9,6 +9,8 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
+import torch
 
 import gvrt_tpu as g3
 import gvrt_tpu_torch as gt
@@ -50,3 +52,15 @@ def assert_grad_close(got, want, name=""):
     np.testing.assert_allclose(np.asarray(got), want,
                                atol=max(2e-5 * scale, 1e-7), rtol=2e-4,
                                err_msg=name)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a test module's torch ops on one intra-op thread (autouse where
+    a module imports it): tier-1 runs six workers on a few cores, and each
+    worker's own torch thread pool slows the small ops of these tests by
+    one to two orders of magnitude there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

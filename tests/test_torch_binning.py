@@ -107,6 +107,38 @@ def test_bin_topology_matches_jax(case, band):
         assert (np.diff(dq[b]) >= -1).all(), tile
 
 
+@pytest.mark.parametrize("band", [(0, 1), (1, 2)], ids=["full", "stride2"])
+def test_bin_gaussians_matches_jax(band):
+    """`bin_gaussians` (topology, then the gathered chunks): the same
+    integer layout as JAX's, and the same forward composite of its chunks
+    (rgb, T within 1e-5, hit counts equal); the reduce plan is built only
+    when grad is enabled."""
+    from gvrt_tpu.render.pallas_forward import forward_tiles_reference
+    from gvrt_tpu_torch.render.pallas_forward import forward_dispatch
+    ja, ta, w2c, proj, cam, cfg, tcfg = _setup("default")
+    w, h = cam.width, cam.height
+    cap = jb.plan_capacity(ja, w2c, proj, w, h, cfg, band=band)
+    jbin = jb.bin_gaussians(ja, jnp.asarray(w2c), jnp.asarray(proj), w, h,
+                            cfg, *cap, *band)
+    with torch.no_grad():
+        tbin = tb.bin_gaussians(ta, w2c, proj, w, h, tcfg, *cap, *band)
+    assert tbin.red is None
+    for f in ("chunk_tile", "chunk_first", "tile_counts", "num_pairs",
+              "overflow"):
+        np.testing.assert_array_equal(getattr(tbin, f).numpy(),
+                                      np.asarray(getattr(jbin, f)), err_msg=f)
+    rays = jb.band_rays(cam, cfg, band[1])[band[0]]
+    want = np.asarray(forward_tiles_reference(jbin, rays, cfg))
+    with torch.no_grad():
+        got = forward_dispatch(tbin, torch.from_numpy(np.array(rays)), tcfg,
+                               "torch").numpy()
+    np.testing.assert_allclose(got[:, [0, 1, 2, 4]], want[:, [0, 1, 2, 4]],
+                               atol=1e-5)
+    np.testing.assert_array_equal(got[:, 5], want[:, 5])
+    assert tb.bin_gaussians(ta, w2c, proj, w, h, tcfg, *cap,
+                            *band).red is not None
+
+
 def test_overflow_counts_match_jax():
     ja, ta, w2c, proj, cam, cfg, tcfg = _setup("default")
     cap, cap_pad = jb.plan_capacity(ja, w2c, proj, 64, 64, cfg)

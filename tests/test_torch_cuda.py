@@ -33,6 +33,11 @@ kernel tolerances):
   * The whole training step, kernels against plain versions, unbanded and
     banded (stride, span, balanced): relative L2 <= 1e-4 per parameter
     group.
+  * The pose gradient (d loss / d delta_t, d loss / d delta_r of
+    `train.pose.pose_loss`: K1's residual, then K2 with ray cotangents)
+    against the plain versions at R = 64 and R = 256, after a NaN-poisoned
+    allocator, on a frame with empty corner tiles: relative L2 <= 1e-4,
+    finite, nonzero.
 """
 
 import os
@@ -593,3 +598,35 @@ def test_reduce_kernels_on_synthetic_plans(cuda, name):
         assert not any(bool(o.any()) for o in outs.values())
     else:
         assert all(bool(o.any()) for o in outs.values())
+
+
+@pytest.mark.parametrize("tile", [8, 16], ids=["R64", "R256"])
+def test_pose_gradient_kernels_match_plain(cuda, tile):
+    cfg = BASE.replace(tile_size=tile)
+    g = torch.Generator(device=cuda).manual_seed(31)
+    model = gt.random_gaussians(g, 2000, extent=0.8, device=cuda)
+    with torch.no_grad():
+        model.means[:, 2] -= 3.0
+    cam = gt.Camera.from_fovy(96, 96, 60.0, np.eye(4))
+    with torch.no_grad():
+        target = gt.render.render_image_tiled(model, cam, cfg,
+                                              device=cuda)["rgb"]
+    bad = gt.train.perturb_cameras([cam], 0.03, seed=1)[0]
+    bound = gt.train.pose.bind_pose(model, bad, target, cfg)
+    assert int((bound.binned.tile_counts == 0).sum()) > 0
+    grads, before = {}, pv.tile_backward.launches
+    for impl in ("cuda", "torch"):
+        # the kernels' outputs come from torch.empty: poison what they reuse
+        torch.full((bound.binned.chunks.numel() * 2,), float("nan"),
+                   device=cuda)
+        t = torch.tensor([0.01, -0.005, 0.002], device=cuda,
+                         requires_grad=True)
+        r = torch.tensor([0.002, 0.001, -0.003], device=cuda,
+                         requires_grad=True)
+        loss = gt.train.pose.pose_loss(bound, t, r, impl)
+        grads[impl] = torch.autograd.grad(loss, (t, r))
+    torch.cuda.synchronize()
+    assert pv.tile_backward.launches == before + 1
+    for got, want in zip(grads["cuda"], grads["torch"]):
+        assert bool(got.isfinite().all()) and float(want.abs().max()) > 0
+        assert _rel_l2(got, want) <= 1e-4

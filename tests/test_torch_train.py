@@ -9,7 +9,8 @@
 * One Adam step schedule of `make_optimizer` against optax on the same
   gradients: parameters within 1e-6 relative.
 * A 3-step `Trainer` run whose loss falls, a checkpoint round trip, and the
-  `train` CLI on a tiny scene.
+  `train` CLI on a tiny scene (also with `--optimize-poses
+  --perturb-poses --optimizer adafactor`; `--devices` is still refused).
 """
 
 import os
@@ -161,11 +162,13 @@ def test_trainer_loss_falls():
 
 def test_trainer_refuses_what_is_not_ported():
     cfg = torch_cfg(CFG_T8)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match='"Multi-device"'):
         Trainer(32, 32, cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Trainer(32, 32, cfg, TrainConfig(optimizer="adafactor"),
-                device="cpu")
+    # Adafactor is accepted (tests/test_torch_adafactor.py)
+    trainer = Trainer(32, 32, cfg, TrainConfig(optimizer="adafactor"),
+                      device="cpu")
+    assert isinstance(trainer.init(carry(_scene(44)))[1],
+                      gt.train.trainer.GroupAdafactor)
     # banded training is ported (tests/test_torch_banded.py)
     assert Trainer(32, 32, cfg, n_bands=2, device="cpu").n_bands == 2
 
@@ -229,7 +232,18 @@ def test_cli_train_cpu(tmp_path):
     tuned = gt.GaussianModel.from_ply(out, device="cpu")
     assert tuned.num_gaussians == 150
     assert latest_step(str(tmp_path / "ckpt")) == 1
-    proc = subprocess.run(base + ["--steps", "1", "--optimize-poses", "1"],
+    # pose refinement before the fine-tune, then Adafactor
+    proc = subprocess.run(base + ["--steps", "1", "--optimize-poses", "3",
+                                  "--perturb-poses", "0.02", "--optimizer",
+                                  "adafactor", "--out", out, "--images-dir",
+                                  str(tmp_path / "targets")],
+                          capture_output=True, text=True, cwd=REPO, env=env,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "pose-opt:" in proc.stdout and "cameras improved" in proc.stdout
+    # the sharded trainer is still refused
+    proc = subprocess.run(base + ["--steps", "1", "--devices", "2"],
                           capture_output=True, text=True, cwd=REPO, env=env,
                           timeout=300)
     assert proc.returncode != 0 and "not ported yet" in proc.stderr
+    assert '"Multi-device"' in proc.stderr
