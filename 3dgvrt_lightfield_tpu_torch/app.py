@@ -5,14 +5,16 @@ Subcommands (the JAX package's CLI, as far as this port reaches):
   render     orbit or dataset-camera renders -> PNG sequence
   benchmark  warmup + timed fps loop, CSV out   (-b -bw -br -bf -bt)
   eval       render dataset cameras + PSNR/SSIM vs ground truth (EVAL_QUALITY)
+  lightfield Gaussian light-field precompute    (GAUSSIAN_LIGHT_FIELD)
   info       device / scene info
-  train      Adam or Adafactor fine-tune on one card (self-distillation or
+  train      Adam or Adafactor fine-tune (self-distillation or
              --images-dir), optionally after refining the camera poses
              (--optimize-poses, --perturb-poses)
 
 `--bands N` renders and trains in N sequential tile-row bands (bounded
-memory for garden-scale scenes, `render/banded.py`).  Everything runs on the
-card unless ``--device cpu`` is given.
+memory for garden-scale scenes, `render/banded.py`).  `train --devices N`
+shards each camera batch over N ranks, one per card (`parallel/`).
+Everything runs on the card unless ``--device cpu`` is given.
 
 Run as:  python -m 3dgvrt_lightfield_tpu_torch <subcommand> [...]
 """
@@ -263,19 +265,93 @@ class _BandedEval:
         return out
 
 
+def cmd_lightfield(args):
+    from .models.lightfield import (LightFieldConfig, compute_light_field,
+                                    save_light_field)
+    model = _load_model(args)
+    # largest tile size <= 20 that divides the image (180 -> 20, 96 -> 16...)
+    tile = next(t for t in (20, 16, 12, 10, 8, 6, 5, 4, 2, 1)
+                if args.size % t == 0)
+    lf = LightFieldConfig(num_cameras=args.cameras, width=args.size,
+                          height=args.size, tile_size=tile)
+    res = compute_light_field(model, lf, impl=args.impl, device=model.device)
+    print("\n".join(save_light_field(args.out, res)))
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _train_rank(rank, args, init_method, devices):
+    """One rank of `train --devices N`: join the process group (from
+    torchrun's environment when `init_method` is None), then train on this
+    rank's share of every camera batch."""
+    import torch.distributed as dist
+    from .parallel import init_distributed, make_mesh
+    init_distributed(init_method, args.devices if init_method else None,
+                     rank if init_method else None,
+                     device=devices[rank] if devices else None)
+    try:
+        mesh = make_mesh(args.devices, devices=devices)
+        args.device = str(mesh.device)
+        _train(args, mesh)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train_sharded(args):
+    """train --devices N: N ranks, one per card (NCCL), or N gloo ranks on
+    the CPU with --device cpu.  Under torchrun this process is one rank of
+    a world that must hold N; else the ranks are spawned here."""
+    if args.bands:
+        raise SystemExit("train --devices shards the camera batch; banded "
+                         "training (--bands) runs on one card")
+    cpu = args.device is not None and torch.device(args.device).type == "cpu"
+    world = os.environ.get("WORLD_SIZE")
+    if world:
+        if int(world) != args.devices:
+            raise SystemExit(f"train --devices {args.devices} in a world of "
+                             f"{world} ranks")
+        return _train_rank(int(os.environ["RANK"]), args, None,
+                           ["cpu"] * args.devices if cpu else None)
+    if not cpu and args.devices > torch.cuda.device_count():
+        raise SystemExit(f"train --devices {args.devices}: "
+                         f"{torch.cuda.device_count()} CUDA card(s) visible; "
+                         f"each rank takes a card of its own")
+    devices = ["cpu" if cpu else f"cuda:{r}" for r in range(args.devices)]
+    init = f"tcp://localhost:{_free_port()}"
+    if args.devices == 1:
+        return _train_rank(0, args, init, devices)
+    torch.multiprocessing.spawn(_train_rank, args=(args, init, devices),
+                                nprocs=args.devices)
+
+
 def cmd_train(args):
+    if args.devices:
+        return _train_sharded(args)
+    return _train(args)
+
+
+def _train(args, mesh=None):
+    """The fine-tune, on one card or as one rank of `mesh`: then only the
+    mesh's first rank prints and writes checkpoints and the PLY."""
     from .config import DEFAULT_CONFIG
     from .io.image import load_png
-    from .parallel import camera_batch
+    from .parallel import camera_batch, replicate_model
     from .render.banded import (BandedRenderer, render_image_banded,
                                 resolve_bands_common)
     from .render.tiled import TiledRenderer
     from .train import TrainConfig, Trainer
     from .utils.metrics import psnr
-    if args.devices:
-        raise SystemExit('train --devices: not ported yet (the sharded '
-                         'trainer, ROADMAP.md section 1, "Multi-device")')
+    lead = mesh is None or mesh.index == 0
+    say = print if lead else (lambda *a, **k: None)
     model = _load_model(args)
+    if mesh is not None:
+        say(f"ranks: {mesh.size} ({mesh.backend})")
+        model = replicate_model(model, mesh)
     cams = _cameras(args, model)
     if args.images_dir:
         targets, kept = [], []
@@ -303,19 +379,28 @@ def cmd_train(args):
     if args.optimize_poses:
         # pose refinement: optionally perturb the dataset poses (the
         # recovery demo), then recover each camera's 6-DOF delta through the
-        # ray cotangents before fine-tuning the Gaussians
+        # ray cotangents before fine-tuning the Gaussians.  On a mesh the
+        # first rank refines and hands every rank its cameras
         from .train import optimize_camera_poses, perturb_cameras
-        if args.perturb_poses:
-            cams = perturb_cameras(cams, args.perturb_poses)
-            print(f"perturbed {len(cams)} poses by sigma_t="
-                  f"{args.perturb_poses} (recovery demo)")
-        cams, reports = optimize_camera_poses(
-            model, cams, targets, DEFAULT_CONFIG,
-            steps=args.optimize_poses, impl=args.impl)
+        reports = None
+        if lead:
+            if args.perturb_poses:
+                cams = perturb_cameras(cams, args.perturb_poses)
+                print(f"perturbed {len(cams)} poses by sigma_t="
+                      f"{args.perturb_poses} (recovery demo)")
+            cams, reports = optimize_camera_poses(
+                model, cams, targets, DEFAULT_CONFIG,
+                steps=args.optimize_poses, impl=args.impl)
+        if mesh is not None and mesh.group is not None:
+            import torch.distributed as dist
+            shared = [cams, reports]
+            dist.broadcast_object_list(
+                shared, dist.get_global_rank(mesh.group, 0), mesh.group)
+            cams, reports = shared
         improved = sum(1 for r in reports if r["loss1"] < r["loss0"])
-        print(f"pose-opt: {improved}/{len(reports)} cameras improved, "
-              f"mean loss {np.mean([r['loss0'] for r in reports]):.3e} -> "
-              f"{np.mean([r['loss1'] for r in reports]):.3e}")
+        say(f"pose-opt: {improved}/{len(reports)} cameras improved, "
+            f"mean loss {np.mean([r['loss0'] for r in reports]):.3e} -> "
+            f"{np.mean([r['loss1'] for r in reports]):.3e}")
     span = args.span_bands or args.balance_bands
     tc = TrainConfig(total_steps=args.steps, optimizer=args.optimizer,
                      banded_remat=args.banded_remat, span_bands=span,
@@ -349,7 +434,8 @@ def cmd_train(args):
                                 impl=args.impl, device=args.device)
         capacity = planner.plan(model, cams[: min(8, len(cams))])
         trainer = Trainer(args.width, args.height, DEFAULT_CONFIG, tc,
-                          capacity, impl=args.impl, device=args.device)
+                          capacity, mesh=mesh, impl=args.impl,
+                          device=args.device)
     state = trainer.init(model)
     start_step = 0
     if args.ckpt_dir:
@@ -357,7 +443,7 @@ def cmd_train(args):
         state, restored = restore_checkpoint(args.ckpt_dir, state)
         if restored is not None:
             start_step = restored + 1
-            print(f"resumed from checkpoint step {restored}")
+            say(f"resumed from checkpoint step {restored}")
     dev = trainer.device
     rng = np.random.default_rng(0)
     # held-out PSNR on cams[0], which the training pool EXCLUDES
@@ -372,6 +458,9 @@ def cmd_train(args):
                                capacity=capacity, impl=args.impl, device=dev)
     train_pool = np.arange(1, len(cams)) if len(cams) > 1 else np.arange(1)
     bsz = min(args.batch, len(train_pool))
+    if mesh is not None and bsz % mesh.size:
+        raise SystemExit(f"train --devices {mesh.size}: a batch of {bsz} "
+                         f"cameras does not split over the ranks (--batch)")
     for step in range(start_step, args.steps):
         idx = rng.choice(train_pool, size=bsz, replace=False)
         if args.bands:
@@ -385,16 +474,18 @@ def cmd_train(args):
             tgt = torch.stack([torch.as_tensor(targets[i], device=dev)
                                for i in idx])
             state, loss = trainer.step(state, batch, tgt)
-        if step % max(1, args.steps // 20) == 0:
+        if lead and step % max(1, args.steps // 20) == 0:
             with torch.no_grad():
                 out = eval_r.render(state[0], cams[0])
             p = psnr(out["rgb"].cpu().numpy() * 255.0,
                      np.asarray(targets[0]) * 255.0)
             print(f"step {step}: loss {float(loss):.6f} psnr {p:.2f}")
-        if args.ckpt_dir and args.ckpt_every and \
+        if lead and args.ckpt_dir and args.ckpt_every and \
                 (step + 1) % args.ckpt_every == 0:
             from .train import save_checkpoint
             save_checkpoint(args.ckpt_dir, state, step)
+    if not lead:
+        return
     if args.ckpt_dir:
         from .train import save_checkpoint
         save_checkpoint(args.ckpt_dir, state, args.steps - 1)
@@ -434,8 +525,14 @@ def main(argv=None):
     pe.add_argument("--frames", type=int, default=10 ** 6)
     pe.set_defaults(fn=cmd_eval)
 
-    pt = sub.add_parser("train", help="Adam or Adafactor fine-tune on one "
-                                      "card")
+    pl = sub.add_parser("lightfield", help="GAUSSIAN_LIGHT_FIELD precompute")
+    _common(pl)
+    pl.add_argument("--out", default="results/lightfield")
+    pl.add_argument("--cameras", type=int, default=4)
+    pl.add_argument("--size", type=int, default=180)
+    pl.set_defaults(fn=cmd_lightfield)
+
+    pt = sub.add_parser("train", help="Adam or Adafactor fine-tune")
     _common(pt)
     pt.add_argument("--images-dir", help="target PNGs named per camera")
     pt.add_argument("--steps", type=int, default=200)
@@ -455,9 +552,9 @@ def main(argv=None):
                     help="pre-sort the model by image row for the first "
                          "camera (scene prep for --span-bands live-id "
                          "windows; one-time cost)")
-    # the sharded trainer is not ported yet: kept in the parser, refused at
-    # run time
-    pt.add_argument("--devices", type=int, default=0, help="not ported yet")
+    pt.add_argument("--devices", type=int, default=0,
+                    help="shard each camera batch over N ranks, one per card "
+                         "(with --device cpu: N gloo ranks on the CPU)")
     pt.add_argument("--optimize-poses", type=int, default=0,
                     metavar="STEPS",
                     help="refine every camera pose for STEPS Adam steps "

@@ -1,20 +1,20 @@
-"""Fine-tuning loop: Adam or Adafactor on all Gaussian parameter groups, on
-one card.
+"""Fine-tuning loop: Adam or Adafactor on all Gaussian parameter groups.
 
-Counterpart of the JAX package's `train/trainer.py` for one card:
-per-group learning rates of the standard 3DGS recipe (position lr scaled by
-the scene extent with exponential decay; SH rest at dc/20) and an L1/L2
-loss.  Two steps:
+Counterpart of the JAX package's `train/trainer.py`: per-group learning
+rates of the standard 3DGS recipe (position lr scaled by the scene extent
+with exponential decay; SH rest at dc/20) and an L1/L2 loss.  Three steps:
 
   * `n_bands == 1`: a camera batch, each camera binned per step, rendered
     through the gather (K3 in its backward) and the tile kernels (K1 with
     its residual, K2);
-  * `n_bands > 1`, the garden-scale path: one camera per step through the
-    banded renderer (`render/banded.py`), against per-band topologies held
-    for `refresh_every` steps, with the compact gradient reduce (K4).
-
-Not ported yet, and refused with NotImplementedError rather than dropped:
-the sharded step (`mesh`, ROADMAP.md section 1, "Multi-device").
+  * with a `mesh` (`parallel/sharding.py`), the same step sharded over
+    ranks: each renders its slice of the camera batch, then the gradients
+    and the loss are all-reduced to their averages (the JAX step's
+    `pmean`s) and every rank takes the same optimizer step;
+  * `n_bands > 1`, the garden-scale path on one card: one camera per step
+    through the banded renderer (`render/banded.py`), against per-band
+    topologies held for `refresh_every` steps, with the compact gradient
+    reduce (K4).
 """
 
 from __future__ import annotations
@@ -27,7 +27,8 @@ import torch
 
 from ..config import DEFAULT_CONFIG, RenderConfig, resolve_device
 from ..models.gaussians import GaussianModel
-from ..parallel.sharding import CameraBatch, _render_one
+from ..parallel.sharding import (CameraBatch, Mesh, _render_one,
+                                average_gradients, local_cameras)
 from ..render.banded import BandedRenderer
 from ..render.pallas_forward import resolve_impl
 
@@ -198,23 +199,40 @@ def _image_loss(rgb, target, tc: TrainConfig) -> torch.Tensor:
             + tc.l2_weight * (diff * diff).mean())
 
 
-def _batch_loss(act, cams: CameraBatch, targets: torch.Tensor, width, height,
-                cfg, cap, cap_pad, impl, tc: TrainConfig) -> torch.Tensor:
+def _batch_backward(model: GaussianModel, cams: CameraBatch,
+                    targets: torch.Tensor, width, height, cfg, cap, cap_pad,
+                    impl, tc: TrainConfig) -> torch.Tensor:
+    """Accumulate the gradient of the batch's mean loss into the leaves,
+    one camera at a time (forward, then backward of loss_i / B), and
+    return the mean loss.  Per camera, so that one camera's graph is alive
+    at a time, and so that the leaves see sum_i J^T(g_i) / B: two ranks of
+    one camera each, averaged by the sharded step, then give the unsharded
+    step's gradients bit for bit (halving is exact; otherwise the sums'
+    order differs), where Adam's eps of 1e-15 would turn a last-bit
+    difference of a near-zero gradient into a learning-rate-sized move."""
+    b = cams.rays.shape[0]
     losses = []
-    for i in range(cams.rays.shape[0]):
-        img = _render_one(act, cams.w2c[i], cams.proj[i], cams.rays[i],
-                          width, height, cfg, cap, cap_pad, impl)
-        losses.append(_image_loss(img[..., 0:3], targets[i], tc))
+    for i in range(b):
+        img = _render_one(model.activate(), cams.w2c[i], cams.proj[i],
+                          cams.rays[i], width, height, cfg, cap, cap_pad,
+                          impl)
+        loss = _image_loss(img[..., 0:3], targets[i], tc)
+        (loss / b).backward()
+        losses.append(loss.detach())
     return torch.stack(losses).mean()
 
 
 class Trainer:
-    """Adam (or Adafactor) fine-tuner on one card.
+    """Adam (or Adafactor) fine-tuner, on one card or sharded over a mesh.
 
     Usage:
         t = Trainer(width, height, cfg, tc, capacity)
         state = t.init(model)             # (model, optimizer)
         state, loss = t.step(state, camera_batch, targets)
+
+    With `mesh`, every rank passes the whole camera batch and targets and
+    renders its `local_batch_slice`; the model lives on the mesh's device
+    and should start replicated (`parallel.replicate_model`).
 
     Garden-scale scenes train through the banded pipeline instead: pass
     `n_bands > 1` and call `step(state, camera, target)` with one Camera and
@@ -229,14 +247,19 @@ class Trainer:
     def __init__(self, width: int, height: int,
                  cfg: RenderConfig = DEFAULT_CONFIG,
                  tc: TrainConfig = TrainConfig(),
-                 capacity: tuple = (0, 0), mesh: Optional[object] = None,
+                 capacity: tuple = (0, 0), mesh: Optional[Mesh] = None,
                  impl: str = "auto", n_bands: int = 1, device=None):
         if mesh is not None:
-            raise NotImplementedError(
-                'the sharded train step (mesh) is not ported yet: ROADMAP.md '
-                'section 1, "Multi-device"')
+            if n_bands > 1:
+                raise ValueError("banded training is single-card: n_bands > "
+                                 "1 takes no mesh")
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device}: the mesh's rank runs on "
+                                 f"{mesh.device}")
+            device = mesh.device
         self.width, self.height, self.cfg, self.tc = width, height, cfg, tc
         self.cap, self.cap_pad = capacity
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.impl = resolve_impl(impl, self.device)
         self.n_bands = n_bands
@@ -289,10 +312,14 @@ class Trainer:
         if self.n_bands > 1:
             return self._banded_step(state, cams, targets)
         model, optimizer = state
+        if self.mesh is not None:  # this rank's cameras
+            cams, sl = local_cameras(cams, self.mesh)
+            targets = targets[sl].to(self.mesh.device)
         optimizer.zero_grad(set_to_none=True)
-        loss = _batch_loss(model.activate(), cams, targets, self.width,
-                           self.height, self.cfg, self.cap, self.cap_pad,
-                           self.impl, self.tc)
-        loss.backward()
+        loss = _batch_backward(model, cams, targets, self.width, self.height,
+                               self.cfg, self.cap, self.cap_pad, self.impl,
+                               self.tc)
+        if self.mesh is not None:
+            loss = average_gradients(model, self.mesh, loss)
         optimizer.step()
         return (model, optimizer), loss.detach()

@@ -18,6 +18,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      residual variant (T_in) and K2 (the backward, with ray gradients on
      two scenes; per column group and per column), the latter two after a
      NaN-poisoned allocator;
+ 2b. K1 (serving and residual) and K2 (with and without ray gradients) at
+     tile 20, the light field's (R = 400 rays, no multiple of 32), on the
+     3000-Gaussian scene at 120^2, after a NaN-poisoned allocator, each
+     twice (bit-identical);
   3. the full-width frame (1920x1088, 300k Gaussians, the scene of the
      JAX package's bench.py made from a torch.Generator) through
      TiledRenderer.plan + render under torch.no_grad() (serving: K1 without
@@ -26,9 +30,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      plain version; then banded serving of the same frame against it
      (render_image_banded with 4 stride bands, 4 span bands on the y-sorted
      model, a 2-band balanced BandedRenderer.render_bound), no K2 or K4;
+ 3c. the light field of that scene (models/lightfield.py: 4 cameras, 180^2,
+     tile 20, 135 degrees) with K1's launches counted, against its plain
+     version; K1 timed at one light-field camera's shapes;
   4. the serving entry point: the CLI renders 4 orbit frames of that scene
      at 1920x1088 from a PLY, unbanded and with --bands 4, and benchmarks
-     it with --bands 4;
+     it with --bands 4; the CLI's `lightfield` from the PLY (4 PNGs and
+     ray_dirs.npy);
   5. the full-width training window (bench.py's protocol): plan with the
      reduce capacity, one topology refresh with the reduce plan, then 10
      steps of rows64_from_model -> gather_from_rows -> forward_dispatch ->
@@ -57,6 +65,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
  8d. the evaluation entry point: the CLI's eval of 4 frames, unbanded,
      then with --bands 4 and --gt-dir on the first: every view compared,
      every one identical;
+ 8e. multi-device on the one card: the CLI's `train --devices 1` (one NCCL
+     rank, the real all-reduce), then two gloo ranks sharing the card
+     (device list ["cuda:0", "cuda:0"] named explicitly): the sharded
+     batch render of 4 orbit cameras against the unsharded renders, the
+     tile-sharded frame against TiledRenderer's, and one Trainer(mesh)
+     step with 2 cameras against the unsharded step, with each rank's
+     launch counts; no speed-up is claimed (two ranks time-share one card);
   9. K4, in both modes, against its plain versions and index_add_ on the
      two span bands of a 3000-Gaussian 128^2 scene, and the banded step's
      gradients, kernels against plain versions, on stride, span and
@@ -75,7 +90,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (K1 and K2 also at garden band 0's shapes; their bounds count the
      gate chain as this run's data needs it, chain_counts, with the
      earlier whole-chain count beside them as bound_ms_chain72; K4's
-     launches are both modes', its table mode's numbers in `table_mode`);
+     launches are both modes', its table mode's numbers in `table_mode`;
+     K1's light-field launches and time, and the R = 400 errors);
  12. the last line: {"ok": true, "device": {...}}.
 
 It needs no network and stops every process it starts.  Without CUDA, or
@@ -137,6 +153,10 @@ COUNT_BATCH = 512
 TRAIN_K, TRAIN_LR, TRAIN_TARGET = 10, 1e-12, 0.3
 
 FULL_W, FULL_H, FULL_N = 1920, 1088, 300_000
+#: the light field's tile (models/lightfield.py): R = 400 rays per tile
+LF_TILE = 20
+#: deadline of the two gloo ranks of phase 8e (they take ~25 s)
+MESH_TIMEOUT_S = 300
 #: the garden-scale window (scripts/config2_scale.py:49-62): Gaussians,
 #: span bands, field of view
 GARDEN_N, GARDEN_BANDS, GARDEN_FOVY = 5_000_000, 2, 60.0
@@ -171,6 +191,174 @@ def cuda_ms(fn, n=10):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def event_ms(fn):
+    """One CUDA-event timing of fn (for the slow plain versions and the
+    multi-step parts): (ms, fn's result)."""
+    import torch
+    start_ev = torch.cuda.Event(enable_timing=True)
+    end_ev = torch.cuda.Event(enable_timing=True)
+    start_ev.record()
+    out = fn()
+    end_ev.record()
+    end_ev.synchronize()
+    return start_ev.elapsed_time(end_ev), out
+
+
+def compare_images(got, want, label):
+    """Light-field images (C, H, W, 3) against the plain version's, under
+    compare_acc's rgb limits: within 1e-5 on 99.99% of pixels, max abs
+    <= 5e-3, finite."""
+    import numpy as np
+    d = np.abs(got - want).max(-1)
+    frac, max_abs = float((d <= 1e-5).mean()), float(d.max())
+    print(json.dumps({"phase": "lightfield_vs_plain", "images": len(got),
+                      "frac_within_1e-5": frac, "max_abs_err": max_abs}),
+          flush=True)
+    if frac < 0.9999 or max_abs > 5e-3 or not np.isfinite(got).all():
+        fail(f"the kernel's {label} disagrees with the plain version's")
+    return max_abs
+
+
+def mesh_rank(rank, ply, init, out_dir, device="cuda:0"):
+    """One of two gloo ranks sharing `device` (phase 8e: the card), on the
+    phase-4 PLY at full width: the sharded batch render of 4 orbit cameras against
+    the unsharded renders, the tile-sharded frame against TiledRenderer's,
+    and one Trainer(mesh) step with 2 cameras (one per rank) against the
+    unsharded step, each with its card time and this rank's launch counts.
+    Writes rank{rank}.json into out_dir."""
+    import hashlib
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    import gvrt_tpu_torch as gt
+    from gvrt_tpu_torch.app import _orbit_cameras
+    from gvrt_tpu_torch.models.gaussians import LEAVES
+    from gvrt_tpu_torch.parallel import init_distributed, make_mesh
+    from gvrt_tpu_torch.parallel import sharding as sh
+    from gvrt_tpu_torch.render import pallas_forward as pf
+    from gvrt_tpu_torch.render import pallas_vjp as pv
+    from gvrt_tpu_torch.render import segreduce as sr
+    from gvrt_tpu_torch.render.tiled import TiledRenderer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = (pf.tile_forward, pf.tile_forward_residual, pv.tile_backward,
+               sr.segment_reduce)
+
+    def counted(fn):
+        for k in kernels:
+            k.launches = 0
+        ms, res = event_ms(fn)
+        return ms, res, {k.__name__: k.launches for k in kernels}
+
+    def clone(m):
+        return gt.GaussianModel(*(p.detach().clone() for p in m.leaves()))
+
+    init_distributed(init, 2, rank, backend="gloo", device=device)
+    try:
+        mesh = make_mesh(2, devices=[device, device])
+        dev, base = mesh.device, gt.DEFAULT_CONFIG
+        out = {"rank": rank, "backend": mesh.backend,
+               "world_size": dist.get_world_size(), "device": str(dev)}
+        model = sh.replicate_model(gt.GaussianModel.from_ply(ply, dev), mesh)
+        cams = _orbit_cameras(model, 4, FULL_W, FULL_H, 39.6)
+        cap = TiledRenderer(FULL_W, FULL_H, base, device=dev).plan(model,
+                                                                   cams)
+        batch = sh.camera_batch(cams, base, dev)
+        with torch.no_grad():
+            ms, imgs, n = counted(lambda: sh.render_batch_sharded(
+                model, batch, mesh, FULL_W, FULL_H, base, *cap))
+            act = model.activate()
+            want = torch.stack([sh._render_one(
+                act, batch.w2c[i], batch.proj[i], batch.rays[i], FULL_W,
+                FULL_H, base, *cap, pf.resolve_impl("auto", dev))
+                for i in range(len(cams))])
+            out["batch"] = {"ms": ms, "launches": n,
+                            "max_abs": float((imgs - want).abs().max()),
+                            "equal": torch.equal(imgs, want)}
+            del imgs, want
+            cam = gt.Camera.from_fovy(FULL_W, FULL_H, 50.0, np.eye(4))
+            capacity = sh.plan_capacity_sharded(model, cam, mesh.size, base)
+            ms, frame, n = counted(lambda: sh.render_image_tile_sharded(
+                model, cam, mesh, base, capacity=capacity))
+            ref = TiledRenderer(FULL_W, FULL_H, base, device=dev).render(
+                model, cam)
+            out["frame"] = {
+                "ms": ms, "launches": n,
+                "rgb_max_abs": float((frame[..., 0:3] - ref["rgb"]).abs()
+                                     .max()),
+                "t_max_abs": float((frame[..., 4] - ref["transmittance"])
+                                   .abs().max()),
+                "hits_equal": torch.equal(frame[..., 5], ref["hit_count"]),
+                "equal_rgb_t": torch.equal(frame[..., 0:3], ref["rgb"])
+                and torch.equal(frame[..., 4], ref["transmittance"])}
+            del frame, ref
+        tc = gt.train.TrainConfig()
+        pair = sh.camera_batch(cams[:2], base, dev)
+        targets = torch.full((2, FULL_H, FULL_W, 3), TRAIN_TARGET, device=dev)
+        sharded = gt.train.Trainer(FULL_W, FULL_H, base, tc, cap, mesh=mesh)
+        state = sharded.init(clone(model))
+        ms, (state, loss), n = counted(lambda: sharded.step(state, pair,
+                                                            targets))
+        single = gt.train.Trainer(FULL_W, FULL_H, base, tc, cap, device=dev)
+        state_1, loss_1 = single.step(single.init(clone(model)), pair,
+                                      targets)
+        flat = torch.cat([p.detach().reshape(-1) for p in state[0].leaves()])
+        out["step"] = {
+            "ms": ms, "launches": n, "loss": float(loss),
+            "loss_unsharded": float(loss_1),
+            "param_max_abs": {k: float((getattr(state[0], k)
+                                        - getattr(state_1[0], k)).detach()
+                                       .abs().max()) for k in LEAVES},
+            "params_sha256": hashlib.sha256(
+                flat.cpu().numpy().tobytes()).hexdigest()}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def check_mesh_ranks(ranks):
+    """Phase 8e's checks on both ranks' results: gloo, world size 2; the
+    batch render equal to the unsharded one; the frame within 1e-5 of
+    TiledRenderer's with equal hit counts; the step's loss within rtol 1e-5
+    and every parameter within 1e-6 of the unsharded step, the ranks'
+    parameters bit-identical; per rank, K1 once per camera it renders, and
+    in the step K1's residual, K2 and K3 once each (its one camera)."""
+    problems = []
+    want_launches = {
+        "batch": {"tile_forward": 2, "tile_forward_residual": 0,
+                  "tile_backward": 0, "segment_reduce": 0},
+        "frame": {"tile_forward": 1, "tile_forward_residual": 0,
+                  "tile_backward": 0, "segment_reduce": 0},
+        "step": {"tile_forward": 0, "tile_forward_residual": 1,
+                 "tile_backward": 1, "segment_reduce": 1}}
+    for r in ranks:
+        if (r["backend"], r["world_size"]) != ("gloo", 2):
+            problems.append(f"rank {r['rank']}: {r['backend']}, world "
+                            f"{r['world_size']}")
+        for part, want in want_launches.items():
+            if r[part]["launches"] != want:
+                problems.append(f"rank {r['rank']} {part} launches "
+                                f"{r[part]['launches']}, expected {want}")
+        if not r["batch"]["equal"]:
+            problems.append(f"rank {r['rank']}: sharded batch differs by "
+                            f"{r['batch']['max_abs']}")
+        fr = r["frame"]
+        if not fr["hits_equal"] or max(fr["rgb_max_abs"],
+                                       fr["t_max_abs"]) > 1e-5:
+            problems.append(f"rank {r['rank']}: tile-sharded frame {fr}")
+        st = r["step"]
+        if abs(st["loss"] - st["loss_unsharded"]) > 1e-5 * abs(
+                st["loss_unsharded"]) or max(st["param_max_abs"].values()) \
+                > 1e-6:
+            problems.append(f"rank {r['rank']}: sharded step {st}")
+    if ranks[0]["step"]["params_sha256"] != ranks[1]["step"]["params_sha256"]:
+        problems.append("the ranks' parameters differ after the step")
+    if problems:
+        fail("multi-rank phase: " + "; ".join(problems))
 
 
 def compare_acc(got, want, label):
@@ -847,16 +1035,6 @@ def main():
                 "segment_reduce_compact_table":
                     sr.segment_reduce_compact_table.launches}
 
-    def event_ms(fn):
-        """One CUDA-event timing of fn (for the slow plain versions)."""
-        start_ev = torch.cuda.Event(enable_timing=True)
-        end_ev = torch.cuda.Event(enable_timing=True)
-        start_ev.record()
-        out = fn()
-        end_ev.record()
-        end_ev.synchronize()
-        return start_ev.elapsed_time(end_ev), out
-
     # ---- 1. set-up -------------------------------------------------------
     card = card_line()
     print(card, flush=True)
@@ -934,6 +1112,34 @@ def main():
     torch.cuda.synchronize()
     add_training_errs(check_training_kernels(
         torch, part, part_rays, base, "full_width_512_tiles", 14))
+
+    # ---- 2b. K1 and K2 at R = 400 (tile 20, the light field's) -----------
+    t20 = base.replace(tile_size=LF_TILE)
+    cam120 = gt.Camera.from_fovy(120, 120, 60.0, np.eye(4))
+    binned, rays = binned_for(gt, small, cam120, t20)
+    if rays.shape[2] != LF_TILE * LF_TILE:
+        fail(f"tile {LF_TILE} gave {rays.shape[2]} rays per tile")
+    poison_allocator(torch, 8 * (binned.chunks.numel() + rays.numel()), dev)
+    with torch.no_grad():
+        got = pf.forward_dispatch(binned, rays, t20, "cuda")
+        again = pf.forward_dispatch(binned, rays, t20, "cuda")
+        want = pf.forward_dispatch(binned, rays, t20, "torch")
+    r400 = {"tile_forward": compare_acc(got, want, "t20_R400")}
+    if not torch.equal(got, again):
+        fail("K1 at R = 400: two runs differ")
+    r400["tile_forward_residual"], r400["tile_backward"] = (
+        check_training_kernels(torch, binned, rays, t20, "t20_R400", 16))
+    r400["tile_backward_ray_gradients"] = check_training_kernels(
+        torch, binned, rays, t20.replace(ray_gradients=True),
+        "t20_R400_ray_gradients", 17)[1]
+    print(json.dumps({"phase": "r400", "rays_per_tile": rays.shape[2],
+                      "tiles": rays.shape[0], "max_abs_err": r400}),
+          flush=True)
+    errs.append(r400["tile_forward"])
+    add_training_errs((r400["tile_forward_residual"],
+                       max(r400["tile_backward"],
+                           r400["tile_backward_ray_gradients"])))
+    del binned, rays, got, again, want
 
     # ---- 3. full width, through the serving entry point ------------------
     renderer = TiledRenderer(FULL_W, FULL_H, base, device=dev)
@@ -1023,6 +1229,57 @@ def main():
         fail(f"banded serving launches: {band_launches}")
     del sorted_model, want_sorted, balanced
 
+    # ---- 3c. the light field of the 300k scene ---------------------------
+    from gvrt_tpu_torch.models import lightfield as lfm
+    t0 = time.time()
+    lf = lfm.LightFieldConfig()
+    reset_launches()
+    lf_ms, lf_out = event_ms(lambda: lfm.compute_light_field(model, lf,
+                                                            device=dev))
+    lf_launches = launches()
+    lf_plain = lfm.compute_light_field(model, lf, impl="torch", device=dev)
+    lf_err = compare_images(lf_out["images"], lf_plain["images"],
+                            "light field")
+    if lf_launches["tile_forward"] < lf.num_cameras or any(
+            lf_launches[k] for k in ("tile_forward_residual",
+                                     "tile_backward", "segment_reduce",
+                                     "segment_reduce_compact")):
+        fail(f"light-field launches {lf_launches}")
+    if lf_out["images"].shape != (lf.num_cameras, lf.height, lf.width, 3) \
+            or not lf_out["images"].max() > 0:
+        fail(f"light field: images {lf_out['images'].shape}, max "
+             f"{lf_out['images'].max()}")
+    # K1 alone at one light-field camera's shapes (R = 400)
+    lf_cfg = base.replace(tile_size=lf.tile_size)
+    lf_scene, lf_rays = binned_for(gt, model, lf_out["cameras"][0], lf_cfg)
+    with torch.no_grad():
+        lf_k_ms = cuda_ms(lambda: pf.tile_forward(
+            lf_scene.chunks, lf_rays, lf_scene.tile_counts, lf_cfg))
+        lf_acc = pf.tile_forward(lf_scene.chunks, lf_rays,
+                                 lf_scene.tile_counts, lf_cfg)
+        lf_k_plain_ms, _ = event_ms(lambda: pf.forward_tiles_reference(
+            lf_scene, lf_rays, lf_cfg))
+        lf_n = chain_counts(lf_scene, lf_rays, lf_cfg)
+        lf_bound = bound_ms(lf_scene, lf_rays, lf_acc, lf_cfg, lf_n)
+        _, lf_runs = pf.tile_chunk_runs(lf_scene.tile_counts,
+                                        lf_scene.chunks.shape[0],
+                                        lf_cfg.chunk_size)
+        lf_n.update(tiles=int(lf_rays.shape[0]),
+                    visited_chunks=int(lf_runs.sum()),
+                    longest_run=int(lf_runs.max()))
+    lightfield = {"launches": lf_launches["tile_forward"],
+                  "max_abs_err": lf_err, "ms": lf_k_ms,
+                  "plain_ms": lf_k_plain_ms, "bound_ms": lf_bound[0],
+                  "bound_by": lf_bound[1], "library_ms": None}
+    print(json.dumps({"phase": "lightfield", "cameras": lf.num_cameras,
+                      "size": lf.width, "tile": lf.tile_size,
+                      "fov_deg": lf.fov_deg, "launches": lf_launches,
+                      "compute_ms": lf_ms, "tile_forward": lightfield,
+                      "camera0_chain_counts": lf_n,
+                      "card": name, "power_limit": power,
+                      "seconds": time.time() - t0}), flush=True)
+    del lf_plain, lf_scene, lf_rays, lf_acc
+
     with tempfile.TemporaryDirectory() as tmp:
         # ---- 4. the CLI on a PLY -----------------------------------------
         ply = os.path.join(tmp, "bench_scene.ply")
@@ -1079,6 +1336,28 @@ def main():
         print(json.dumps({"phase": "cli_benchmark_bands", "output": [
             line for line in proc.stdout.splitlines() if "/s" in line],
             "seconds": time.time() - t0}), flush=True)
+        # the light field from the PLY: 4 PNGs and the ray directions
+        t0 = time.time()
+        lf_dir = os.path.join(tmp, "lightfield")
+        proc = subprocess.run(
+            [sys.executable, "-m", PKG, "lightfield", "--ply", ply, "--out",
+             lf_dir], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"CLI lightfield failed:\n{proc.stdout}\n{proc.stderr}")
+        lf_pngs = sorted(f for f in os.listdir(lf_dir) if f.endswith(".png"))
+        lf_dirs = np.load(os.path.join(lf_dir, "ray_dirs.npy"))
+        lf_levels = max(int(np.abs(
+            gt.io.load_png(os.path.join(lf_dir, f)).astype(np.int64)
+            - gt.io.image.to_uint8(img).astype(np.int64)).max())
+            for f, img in zip(lf_pngs, lf_out["images"]))
+        print(json.dumps({"phase": "cli_lightfield", "pngs": lf_pngs,
+                          "ray_dirs_shape": list(lf_dirs.shape),
+                          "max_level_diff_vs_in_process": lf_levels,
+                          "seconds": time.time() - t0}), flush=True)
+        if lf_pngs != [f"sampling_cam{i:04d}.png" for i in range(4)] or \
+                lf_dirs.shape != (4, 180, 180, 3):
+            fail(f"CLI lightfield wrote {lf_pngs}, ray_dirs "
+                 f"{lf_dirs.shape}")
 
         # ---- 5. the full-width training window ---------------------------
         trainer_r = TiledRenderer(FULL_W, FULL_H, base, device=dev)
@@ -1494,6 +1773,51 @@ def main():
                 not all("PSNR=inf" in v for v in views) or not all(same):
             fail(f"CLI eval --bands 4 against the unbanded views: {views}, "
                  f"identical {same}")
+
+        # ---- 8e. multi-device on the one card -----------------------------
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", PKG, "train", "--ply", ply, "--width",
+             str(FULL_W), "--height", str(FULL_H), "--frames", "4",
+             "--steps", "3", "--batch", "1", "--images-dir", out_dir,
+             "--devices", "1", "--out", tuned], cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"CLI train --devices 1 failed:\n{proc.stdout}\n"
+                 f"{proc.stderr}")
+        psnrs = [float(line.split("psnr")[1]) for line in
+                 proc.stdout.splitlines() if "psnr" in line]
+        ranks_line = [line for line in proc.stdout.splitlines()
+                      if line.startswith("ranks:")]
+        loaded = gt.GaussianModel.from_ply(tuned, device="cpu")
+        print(json.dumps({"phase": "cli_train_devices1", "ranks": ranks_line,
+                          "psnr": psnrs, "gaussians": loaded.num_gaussians,
+                          "seconds": time.time() - t0}), flush=True)
+        if ranks_line != ["ranks: 1 (nccl)"] or not psnrs or not all(
+                np.isfinite(psnrs)) or loaded.num_gaussians != FULL_N:
+            fail(f"CLI train --devices 1: {ranks_line}, psnr {psnrs}, "
+                 f"{loaded.num_gaussians} gaussians\n{proc.stdout}")
+        t0 = time.time()
+        mesh_dir = os.path.join(tmp, "mesh")
+        os.makedirs(mesh_dir)
+        from gvrt_tpu_torch.app import _free_port
+        ctx = torch.multiprocessing.spawn(
+            mesh_rank, args=(ply, f"tcp://localhost:{_free_port()}",
+                             mesh_dir), nprocs=2, join=False)
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.1)):
+            if time.monotonic() >= deadline:
+                for p in ctx.processes:
+                    p.kill()
+                fail(f"the two ranks did not finish in {MESH_TIMEOUT_S} s")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(mesh_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        print(json.dumps({"phase": "mesh_one_card", "ranks": ranks,
+                          "card": name, "power_limit": power,
+                          "seconds": time.time() - t0}), flush=True)
+        check_mesh_ranks(ranks)
     del model, full, renderer, trainer_r, train_model, topo, scene_t
     del chunks_t, acc_t, t_in, bar, captured, bar_flat, out, acc
     torch.cuda.empty_cache()
@@ -1564,17 +1888,23 @@ def main():
 
     vjp = "3dgvrt_lightfield_tpu/render/pallas_vjp.py"
     print(json.dumps({"kernels": [
+        # the light field's run beside: its launches and K1 at its shapes
         entry("tile_forward", "tile_forward.cu", f"{vjp}:74",
               serve_launches["tile_forward"], max(errs + [full_err]), k_ms,
-              plain_ms, k1_bound, None),
+              plain_ms, k1_bound, None, lightfield=lightfield,
+              r400_max_abs_err=r400["tile_forward"]),
         entry("tile_forward_residual", "tile_forward.cu", f"{vjp}:74",
               train_launches["tile_forward_residual"],
               max(tin_errs + [res_err]), res_ms, res_plain_ms,
-              res_bound, None),
+              res_bound, None,
+              r400_max_abs_err=r400["tile_forward_residual"]),
         # the ray-cotangent instances beside: launches on the pose path
         entry("tile_backward", "tile_backward.cu", f"{vjp}:99",
               train_launches["tile_backward"], max(k2_errs + [k2_err]),
-              k2_ms, k2_plain_ms, k2_bound, None, ray_gradients={
+              k2_ms, k2_plain_ms, k2_bound, None,
+              r400_max_abs_err=max(r400["tile_backward"],
+                                   r400["tile_backward_ray_gradients"]),
+              ray_gradients={
                   "launches": pose_launches["tile_backward"],
                   "max_abs_err": k2r["max_abs_err"], "ms": k2r["ms"],
                   "ms_without": k2r["ms_without"],

@@ -12,6 +12,8 @@ kernel tolerances):
     on at least 99.99% of rays, and max abs <= 5e-3: a sequential product
     against a cumprod can flip a borderline `T > min_transmittance` gate on
     a rare pair.  Its residual T_in: within 1e-5 on 99.99% of entries.
+    K1 and K2 also at tile 20 (R = 400, the light field's), where the last
+    warp of a block holds 16 rays.
   * K2: relative L2 error <= 1e-4 per column group (M, b, density, SH), per
     column (each of the 61 nonzero ones whose plain norm is nonzero: a
     group's L2 would hide a small column mapped to the wrong place) and for
@@ -320,9 +322,33 @@ def _bar_acc(scene_rays, seed):
 def test_residual_and_backward_kernels_match_plain(cuda, name, ray_grads):
     cfg = CONFIGS[name].replace(ray_gradients=ray_grads)
     scene, rays = _binned(cuda, cfg, pad_factor=2)
+    _assert_training_kernels_match_plain(scene, rays, cfg, ray_grads)
+
+
+@pytest.mark.parametrize("ray_grads", [False, True],
+                         ids=["no_ray_grads", "ray_grads"])
+def test_kernels_at_400_rays_per_tile(cuda, ray_grads):
+    """Tile 20, the light field's: R = 400 is no multiple of 32, so lanes
+    400-415 of each block's 13th warp hold no ray, vote in the warp-wide
+    early reject and fill half of K2's mma.sync fragments with zeros."""
+    cfg = BASE.replace(tile_size=20, ray_gradients=ray_grads)
+    scene, rays = _binned(cuda, cfg, n=3000, res=120, pad_factor=2)
+    assert rays.shape[2] == 400
+    torch.full((scene.chunks.numel() * 2,), float("nan"), device=cuda)
+    got = _assert_kernel_matches_plain(scene, rays, cfg)
+    with torch.no_grad():
+        again = pf.forward_dispatch(scene, rays, cfg, "cuda")
+    assert torch.equal(got, again)
+    assert float(got[:, 5].mean()) > 1.0
+    _assert_training_kernels_match_plain(scene, rays, cfg, ray_grads)
+
+
+def _assert_training_kernels_match_plain(scene, rays, cfg, ray_grads):
+    """K1's residual and K2 against their plain versions, each after a
+    NaN-poisoned allocator."""
     # poison the caching allocator: the kernels' outputs come from
     # torch.empty and must not show what was there before
-    torch.full((scene.chunks.numel() * 2,), float("nan"), device=cuda)
+    torch.full((scene.chunks.numel() * 2,), float("nan"), device=rays.device)
     before = (pf.tile_forward_residual.launches, pv.tile_backward.launches)
     acc, t_in = pf.tile_forward_residual(scene.chunks, rays,
                                          scene.tile_counts, cfg)
@@ -332,7 +358,7 @@ def test_residual_and_backward_kernels_match_plain(cuda, name, ray_grads):
     assert bool(t_in.isfinite().all())
     assert float(((t_in - t_in_p).abs() <= 1e-5).float().mean()) >= 0.9999
     bar_acc = _bar_acc(rays, 7)
-    torch.full((scene.chunks.numel() * 2,), float("nan"), device=cuda)
+    torch.full((scene.chunks.numel() * 2,), float("nan"), device=rays.device)
     got = pv.tile_backward(scene.chunks, rays, scene.tile_counts, t_in,
                            bar_acc, cfg)
     again = pv.tile_backward(scene.chunks, rays, scene.tile_counts, t_in,

@@ -190,7 +190,10 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "gvrt_tpu_torch.train.trainer, "
             "gvrt_tpu_torch.train.checkpoint, gvrt_tpu_torch.train.pose, "
             "gvrt_tpu_torch.parallel, gvrt_tpu_torch.utils.metrics, "
-            "gvrt_tpu_torch.utils.evaluate, gvrt_tpu_torch.app\n"
+            "gvrt_tpu_torch.utils.evaluate, gvrt_tpu_torch.app, "
+            "gvrt_tpu_torch.parallel.distributed, "
+            "gvrt_tpu_torch.models.lightfield, "
+            "gvrt_tpu_torch.utils.profiling, gvrt_tpu_torch.utils.debug\n"
             "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
             " or k in ('3dgvrt_lightfield_tpu', 'gvrt_tpu')"
             " or k.startswith(('3dgvrt_lightfield_tpu.', 'gvrt_tpu.'))]\n"

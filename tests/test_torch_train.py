@@ -10,7 +10,8 @@
   gradients: parameters within 1e-6 relative.
 * A 3-step `Trainer` run whose loss falls, a checkpoint round trip, and the
   `train` CLI on a tiny scene (also with `--optimize-poses
-  --perturb-poses --optimizer adafactor`; `--devices` is still refused).
+  --perturb-poses --optimizer adafactor`, and on two gloo ranks with
+  `--devices 2 --device cpu`).
 """
 
 import os
@@ -162,8 +163,12 @@ def test_trainer_loss_falls():
 
 def test_trainer_refuses_what_is_not_ported():
     cfg = torch_cfg(CFG_T8)
-    with pytest.raises(NotImplementedError, match='"Multi-device"'):
-        Trainer(32, 32, cfg, mesh=object(), device="cpu")
+    # the sharded step is ported (tests/test_torch_parallel.py); banded
+    # training stays single-card, as the JAX package's assert says
+    mesh = gt.parallel.data_parallel_mesh(devices=["cpu"])
+    assert Trainer(32, 32, cfg, mesh=mesh).mesh is mesh
+    with pytest.raises(ValueError, match="single-card"):
+        Trainer(32, 32, cfg, mesh=mesh, n_bands=2)
     # Adafactor is accepted (tests/test_torch_adafactor.py)
     trainer = Trainer(32, 32, cfg, TrainConfig(optimizer="adafactor"),
                       device="cpu")
@@ -241,9 +246,34 @@ def test_cli_train_cpu(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "pose-opt:" in proc.stdout and "cameras improved" in proc.stdout
-    # the sharded trainer is still refused
-    proc = subprocess.run(base + ["--steps", "1", "--devices", "2"],
-                          capture_output=True, text=True, cwd=REPO, env=env,
+    # two gloo ranks: each camera batch split over them, the first rank's
+    # refined poses shared, one PLY written
+    sharded = tmp_path / "sharded"
+    env1 = dict(env, OMP_NUM_THREADS="1")
+    proc = subprocess.run(base + ["--steps", "2", "--devices", "2",
+                                  "--batch", "2", "--optimize-poses", "2",
+                                  "--perturb-poses", "0.02", "--out",
+                                  str(sharded / "tuned.ply"), "--images-dir",
+                                  str(tmp_path / "targets")],
+                          capture_output=True, text=True, cwd=REPO, env=env1,
                           timeout=300)
-    assert proc.returncode != 0 and "not ported yet" in proc.stderr
-    assert '"Multi-device"' in proc.stderr
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.count("ranks: 2 (gloo)") == 1
+    assert proc.stdout.count("pose-opt:") == 1
+    assert proc.stdout.count("saved fine-tuned model") == 1
+    assert os.listdir(sharded) == ["tuned.ply"]
+    assert gt.GaussianModel.from_ply(str(sharded / "tuned.ply"),
+                                     device="cpu").num_gaussians == 150
+    # a rank that fails fails the run: a batch of 1 does not split over 2
+    proc = subprocess.run(base + ["--steps", "1", "--devices", "2", "--out",
+                                  str(tmp_path / "x.ply")],
+                          capture_output=True, text=True, cwd=REPO, env=env1,
+                          timeout=300)
+    assert proc.returncode != 0 and "does not split" in proc.stderr
+    # no rank is put on a card that is not there
+    proc = subprocess.run([a for a in base if a not in ("--device", "cpu")]
+                          + ["--steps", "1", "--devices", "2"],
+                          capture_output=True, text=True, cwd=REPO, env=env1,
+                          timeout=300)
+    assert proc.returncode != 0
+    assert "--devices 2: 0 CUDA card(s) visible" in proc.stderr
