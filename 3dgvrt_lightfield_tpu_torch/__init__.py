@@ -21,6 +21,8 @@ from . import render
 from . import utils
 from . import parallel
 from . import train
+from . import native
+from . import hybrid
 
 from .models.gaussians import GaussianModel, random_gaussians
 from .io.cameras import Camera, load_nerf_cameras, perspective_vulkan

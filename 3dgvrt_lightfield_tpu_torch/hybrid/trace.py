@@ -1,0 +1,295 @@
+"""Batched ray-triangle intersection (the hybrid renderer's traversal layer).
+
+Replaces the reference's Vulkan TLAS traversal + closest-hit dispatch
+(VulkanHybrid.cpp AS build, closesthit.rchit `unpackTriangle`) with
+Möller-Trumbore over triangle chunks and a masked argmin, as the JAX
+package does.  Layout: rays are rows (R, 6), triangles are packed on the
+last dimension (C, 3, G), so every arithmetic op is an (R, G) broadcast.
+
+BVH-lite cull: `pack_triangles` Morton-orders triangles by centroid so
+each chunk is spatially compact and stores a per-chunk AABB.  Rays are
+grouped into cull blocks of `block` rays (image regions are coherent); a
+block skips a chunk when its slab test says no ray of the block can touch
+it, including rays whose current best hit (closest_hit) or shadow-segment
+end (occluded) is nearer.  The cull is conservative, so the result is the
+brute-force scan's.  Here the skip is a mask on the device (`torch.where`
+on the carry) rather than a branch: a branch would read a device value on
+the host once per (block, chunk).  Rays are computed `batch` at a time
+(whole cull blocks), which bounds the (rays, chunk) temporaries.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..config import resolve_device
+
+#: back-face/parallel tolerance (Möller-Trumbore determinant cutoff)
+EPS_DET = 1e-9
+#: primary/secondary ray tmin (define.glsl RAY_TMIN is 0.1 for secondary
+#: rays; primaries from the G-buffer cast use a tighter 1e-3)
+RAY_TMIN = 0.1
+#: miss distance: finite, as the JAX package's (render/combined.py turns it
+#: into inf)
+INF = 1e30
+#: default rays per culling block: one 64x64 image tile
+RAY_BLOCK = 4096
+#: default rays computed at once (whole cull blocks): the (rays, chunk)
+#: temporaries of a 512-triangle chunk stay at tens of MB each
+RAY_BATCH = 16384
+
+
+class TrianglePack(NamedTuple):
+    """Packed triangles on one device, chunked for the chunk loop."""
+    v0: torch.Tensor      # (C, 3, G) chunk, xyz, lane
+    e1: torch.Tensor      # (C, 3, G) v1 - v0
+    e2: torch.Tensor      # (C, 3, G) v2 - v0
+    tri_id: torch.Tensor  # (C, G) int64 original triangle id (or -1 pad)
+    lo: torch.Tensor      # (C, 3) chunk AABB min (+INF for all-pad chunks)
+    hi: torch.Tensor      # (C, 3) chunk AABB max (-INF for all-pad chunks)
+
+
+def _morton3(x: np.ndarray) -> np.ndarray:
+    """(N, 3) int in [0, 1024) -> interleaved 30-bit Morton codes."""
+    def spread(v):
+        v = v.astype(np.uint64)
+        v = (v | (v << 16)) & np.uint64(0x030000FF)
+        v = (v | (v << 8)) & np.uint64(0x0300F00F)
+        v = (v | (v << 4)) & np.uint64(0x030C30C3)
+        v = (v | (v << 2)) & np.uint64(0x09249249)
+        return v
+    return (spread(x[:, 0]) | (spread(x[:, 1]) << np.uint64(1))
+            | (spread(x[:, 2]) << np.uint64(2)))
+
+
+def pack_triangles(tri_pos: np.ndarray, chunk: int = 512,
+                   reorder: bool = True, device=None) -> TrianglePack:
+    """(T, 3, 3) vertex triples -> lane-major chunks padded to `chunk`, on
+    `device` (the card unless "cpu" is asked for).
+
+    With `reorder` (default), triangles are sorted (in NumPy, as the JAX
+    package sorts them) by the Morton code of their centroid, so chunks are
+    spatially compact and the per-chunk AABBs are tight.  `tri_id` carries
+    the original triangle index, so attribute gathers are unaffected.
+    """
+    dev = resolve_device(device)
+    t = np.asarray(tri_pos, np.float32)
+    n = len(t)
+    order = np.arange(n)
+    if reorder and n > 1:
+        cent = t.mean(axis=1)
+        lo, hi = cent.min(0), cent.max(0)
+        q = ((cent - lo) / np.maximum(hi - lo, 1e-12) * 1023.0)
+        order = np.argsort(_morton3(np.clip(q, 0, 1023).astype(np.int64)),
+                           kind="stable")
+        t = t[order]
+    c = max(1, -(-n // chunk))
+    pad = c * chunk - n
+    v0 = t[:, 0, :]
+    e1 = t[:, 1, :] - t[:, 0, :]
+    e2 = t[:, 2, :] - t[:, 0, :]
+
+    def chunked(x):
+        x = np.concatenate([x, np.zeros((pad, 3), np.float32)])
+        return torch.as_tensor(np.ascontiguousarray(
+            x.reshape(c, chunk, 3).transpose(0, 2, 1)), device=dev)
+
+    ids = np.concatenate([order.astype(np.int64),
+                          np.full((pad,), -1, np.int64)])
+
+    # per-chunk AABB over real triangles (pad slots excluded via +-INF)
+    vmin = np.minimum(np.minimum(t[:, 0], t[:, 1]), t[:, 2])
+    vmax = np.maximum(np.maximum(t[:, 0], t[:, 1]), t[:, 2])
+    vmin = np.concatenate([vmin, np.full((pad, 3), INF, np.float32)])
+    vmax = np.concatenate([vmax, np.full((pad, 3), -INF, np.float32)])
+    lo = vmin.reshape(c, chunk, 3).min(axis=1)
+    hi = vmax.reshape(c, chunk, 3).max(axis=1)
+
+    return TrianglePack(chunked(v0), chunked(e1), chunked(e2),
+                        torch.as_tensor(ids.reshape(c, chunk), device=dev),
+                        torch.as_tensor(lo, device=dev),
+                        torch.as_tensor(hi, device=dev))
+
+
+def _fma(a, b, c):
+    """a * b + c rounded once to f32, as a fused multiply-add rounds it
+    (the f32 product is exact in f64; rounding the f64 sum to f32 differs
+    from one rounding only at an f32 midpoint)."""
+    return torch.addcmul(c.double(), a.double(), b.double()).float()
+
+
+def _intersect_chunk(o, d, v0, e1, e2):
+    """Möller-Trumbore for (..., 1) ray columns x (G,) triangles -> t, u, v,
+    hit mask, each (..., G).
+
+    The products and sums are contracted into fused multiply-adds where
+    XLA contracts the JAX package's expressions on the CPU (a*b - c*d ->
+    fma(a, b, -(c*d)); a*b + c*d + e*f -> fma(e, f, fma(a, b, c*d))), so a
+    ray through a triangle edge resolves as it does there."""
+    # pvec = d x e2 ; det = e1 . pvec
+    p0 = _fma(d[1], e2[2], -(d[2] * e2[1]))
+    p1 = _fma(d[2], e2[0], -(d[0] * e2[2]))
+    p2 = _fma(d[0], e2[1], -(d[1] * e2[0]))
+    det = _fma(e1[2], p2, _fma(e1[0], p0, e1[1] * p1))
+    ok_det = det.abs() > EPS_DET
+    inv_det = torch.where(ok_det, 1.0 / det, 0.0)
+
+    t0 = o[0] - v0[0]
+    t1 = o[1] - v0[1]
+    t2 = o[2] - v0[2]
+    u = _fma(t2, p2, _fma(t0, p0, t1 * p1)) * inv_det
+
+    # qvec = tvec x e1
+    q0 = _fma(t1, e1[2], -(t2 * e1[1]))
+    q1 = _fma(t2, e1[0], -(t0 * e1[2]))
+    q2 = _fma(t0, e1[1], -(t1 * e1[0]))
+    v = _fma(d[2], q2, _fma(d[0], q0, d[1] * q1)) * inv_det
+    t = _fma(e2[2], q2, _fma(e2[0], q0, e2[1] * q1)) * inv_det
+
+    hit = ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+    return t, u, v, hit
+
+
+def _split(rays):
+    """(..., 6) rays -> ([ox, oy, oz], [dx, dy, dz]), each (..., 1)."""
+    o = [rays[..., j:j + 1] for j in range(3)]
+    d = [rays[..., 3 + j:4 + j] for j in range(3)]
+    return o, d
+
+
+def _slab(o, d, lo, hi):
+    """Ray-vs-AABB slab test of (..., 1) ray columns and (3,) box corners.
+
+    Returns (near, far) per ray; overlap iff near <= far (and the interval
+    meets the caller's [tmin, bound]).  Zero direction components are
+    clamped to +-1e-12, which keeps the test conservative (huge finite t's
+    instead of NaNs from 0 * inf).
+    """
+    near = torch.full_like(o[0][..., 0], -INF)
+    far = torch.full_like(o[0][..., 0], INF)
+    for j in range(3):
+        dj = d[j][..., 0]
+        inv = 1.0 / torch.where(dj.abs() < 1e-12,
+                                torch.where(dj < 0, -1e-12, 1e-12), dj)
+        a = (lo[j] - o[j][..., 0]) * inv
+        b = (hi[j] - o[j][..., 0]) * inv
+        near = torch.maximum(near, torch.minimum(a, b))
+        far = torch.minimum(far, torch.maximum(a, b))
+    return near, far
+
+
+def _chunk_planes(tris: TrianglePack, c: int):
+    """Chunk c's vertex and edge rows as lists of (G,) tensors."""
+    return ([tris.v0[c, j] for j in range(3)],
+            [tris.e1[c, j] for j in range(3)],
+            [tris.e2[c, j] for j in range(3)])
+
+
+def _pad_blocks(rays, aux, block):
+    """Split (R, ...) tensors into (B, block, ...), padding with dead rays.
+
+    The last aux entry returned is an explicit per-ray validity mask (1 for
+    real rays, 0 for padding): callers disable padded rays through it
+    (tmax = -INF), never through a tmax sentinel."""
+    r = rays.shape[0]
+    b = max(1, -(-r // block))
+    pad = b * block - r
+    rays = torch.nn.functional.pad(rays, (0, 0, 0, pad))
+    aux = [torch.nn.functional.pad(a, (0, pad)) for a in aux]
+    aux.append(torch.nn.functional.pad(
+        torch.ones((r,), dtype=rays.dtype, device=rays.device), (0, pad)))
+    return (rays.reshape(b, block, 6), [a.reshape(b, block) for a in aux], r)
+
+
+def _block_groups(n_blocks: int, block: int, batch: int):
+    """Slices of whole cull blocks, about `batch` rays each."""
+    per = max(1, batch // block)
+    return [slice(i, min(i + per, n_blocks)) for i in range(0, n_blocks, per)]
+
+
+def _closest_hit_blocks(rays, tris, tmin, tmax):
+    """Nearest hit of (B, block) rays: the cull per block and chunk."""
+    o, d = _split(rays)
+    shape = rays.shape[:-1]
+    best_t = torch.full(shape, INF, device=rays.device)
+    best_tri = torch.full(shape, -1, dtype=torch.int64, device=rays.device)
+    best_u = torch.zeros(shape, device=rays.device)
+    best_v = torch.zeros(shape, device=rays.device)
+    for c in range(tris.v0.shape[0]):
+        near, far = _slab(o, d, tris.lo[c], tris.hi[c])
+        live = ((near <= torch.minimum(far, torch.minimum(tmax, best_t)))
+                & (far >= tmin))
+        live = live.any(dim=-1, keepdim=True)      # per cull block
+        v0, e1, e2 = _chunk_planes(tris, c)
+        t, u, v, hit = _intersect_chunk(o, d, v0, e1, e2)
+        ids = tris.tri_id[c]
+        ok = (hit & (ids >= 0) & (t >= tmin[..., None])
+              & (t <= tmax[..., None]) & (t < best_t[..., None]))
+        tbig = torch.where(ok, t, INF)
+        j = torch.argmin(tbig, dim=-1, keepdim=True)   # first minimum
+        t_j = torch.gather(tbig, -1, j)[..., 0]
+        better = (t_j < best_t) & live
+        best_tri = torch.where(better, ids[j[..., 0]], best_tri)
+        best_u = torch.where(better, torch.gather(u, -1, j)[..., 0], best_u)
+        best_v = torch.where(better, torch.gather(v, -1, j)[..., 0], best_v)
+        best_t = torch.where(better, t_j, best_t)
+    return best_t, best_tri, best_u, best_v
+
+
+def closest_hit(rays: torch.Tensor, tris: TrianglePack,
+                tmin: Optional[torch.Tensor] = None,
+                tmax: Optional[torch.Tensor] = None,
+                block: int = RAY_BLOCK, batch: int = RAY_BATCH):
+    """Nearest intersection per ray.
+
+    rays (R, 6) [o, d]; returns a dict of (R,) tensors: t (INF on miss),
+    tri (int64, -1 on miss), u, v barycentrics.  Rays are culled in blocks
+    of `block` (contiguous rays come from one image region) and computed
+    `batch` rays at a time.
+    """
+    r = rays.shape[0]
+    tmin = torch.full((r,), RAY_TMIN, device=rays.device) if tmin is None \
+        else tmin
+    tmax = torch.full((r,), INF, device=rays.device) if tmax is None \
+        else tmax
+    rb, (tminb, tmaxb, validb), r0 = _pad_blocks(rays, [tmin, tmax],
+                                                 min(block, r))
+    # padded rays (valid == 0) get an empty [tmin, -INF) interval
+    tmaxb = torch.where(validb > 0, tmaxb, -INF)
+    outs = [_closest_hit_blocks(rb[s], tris, tminb[s], tmaxb[s])
+            for s in _block_groups(rb.shape[0], rb.shape[1], batch)]
+    t, tri, u, v = (torch.cat(x).reshape(-1)[:r0] for x in zip(*outs))
+    return {"t": t, "tri": tri, "u": u, "v": v}
+
+
+def _occluded_blocks(rays, tris, tmin, tmax):
+    """Any hit of (B, block) rays in (tmin, tmax): the cull per block."""
+    o, d = _split(rays)
+    occ = torch.zeros(rays.shape[:-1], dtype=torch.bool, device=rays.device)
+    for c in range(tris.v0.shape[0]):
+        near, far = _slab(o, d, tris.lo[c], tris.hi[c])
+        # a fully shadowed block stops testing
+        live = ((near <= torch.minimum(far, tmax)) & (far >= tmin) & ~occ)
+        live = live.any(dim=-1, keepdim=True)
+        v0, e1, e2 = _chunk_planes(tris, c)
+        t, _, _, hit = _intersect_chunk(o, d, v0, e1, e2)
+        any_hit = (hit & (tris.tri_id[c] >= 0) & (t >= tmin[..., None])
+                   & (t <= tmax[..., None])).any(dim=-1)
+        occ = occ | (any_hit & live)
+    return occ
+
+
+def occluded(rays: torch.Tensor, tris: TrianglePack, tmin: torch.Tensor,
+             tmax: torch.Tensor, block: int = RAY_BLOCK,
+             batch: int = RAY_BATCH) -> torch.Tensor:
+    """Any-hit test in (tmin, tmax): the shadow-ray trace (raygen.rgen
+    traceRayEXT with TerminateOnFirstHit).  (R,) bool."""
+    rb, (tminb, tmaxb, validb), r0 = _pad_blocks(rays, [tmin, tmax],
+                                                 min(block, rays.shape[0]))
+    tmaxb = torch.where(validb > 0, tmaxb, -INF)
+    occ = [_occluded_blocks(rb[s], tris, tminb[s], tmaxb[s])
+           for s in _block_groups(rb.shape[0], rb.shape[1], batch)]
+    return torch.cat(occ).reshape(-1)[:r0]

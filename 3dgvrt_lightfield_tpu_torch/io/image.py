@@ -32,3 +32,27 @@ def load_png(path: str) -> np.ndarray:
     from PIL import Image
     return np.asarray(Image.open(path).convert("RGB"))
 
+
+def load_cubemap(paths) -> np.ndarray:
+    """Load a cubemap -> (6, S, S, 3) float32, faces [+X, -X, +Y, -Y, +Z, -Z].
+
+    Accepts either a single `.ktx`/`.ktx2` container (the reference's format:
+    base/VulkanTexture.cpp loadCubemap, used at VulkanRTBase.cpp:3656 — read
+    by io/ktx.py) or a list of 6 face PNGs in the same Vulkan/KTX layer
+    order; faces must share one square size.
+    """
+    if isinstance(paths, (str, os.PathLike)):
+        from .ktx import load_ktx
+        cube = load_ktx(os.fspath(paths))
+        if cube.ndim != 4 or cube.shape[0] != 6:
+            raise ValueError(f"{paths}: not a 6-face cubemap KTX")
+        s = cube.shape[1]
+        if cube.shape[2] != s:
+            raise ValueError("cube faces must be square")
+        return np.ascontiguousarray(cube[..., :3], np.float32)
+    assert len(paths) == 6, "a cubemap needs exactly 6 faces (+X-X+Y-Y+Z-Z)"
+    faces = [np.asarray(load_png(p), np.float32) / 255.0 for p in paths]
+    s = faces[0].shape[0]
+    for f in faces:
+        assert f.shape == (s, s, 3), f"cube faces must be square {s}x{s}x3"
+    return np.stack(faces, axis=0)

@@ -1,4 +1,4 @@
-"""INRIA 3DGS PLY loading/saving (pure NumPy).
+"""INRIA 3DGS PLY loading/saving (NumPy, or the native C++ reader).
 
 Reference: base/Vulkan3DGRTModel.cpp:7-125 (miniply-based loader).  The loader
 produces the same SoA layout as the reference's `SplatSet` — positions (N,3),
@@ -100,7 +100,7 @@ def read_ply_arrays(path: str) -> Dict[str, np.ndarray]:
 
 def load_splats(path: str) -> SplatSet:
     """Load an INRIA 3DGS .ply into a SplatSet (Vulkan3DGRTModel.cpp:7-125)."""
-    props = read_ply_arrays(path)
+    props = _load_props(path)
     n = props["x"].shape[0]
     positions = np.stack([props["x"], props["y"], props["z"]], axis=1)
     scale = np.stack([props[f"scale_{i}"] for i in range(3)], axis=1)
@@ -121,6 +121,17 @@ def load_splats(path: str) -> SplatSet:
         f_dc=np.ascontiguousarray(f_dc, np.float32),
         f_rest=np.ascontiguousarray(f_rest, np.float32),
     )
+
+
+def _load_props(path: str) -> Dict[str, np.ndarray]:
+    """The first vertex element's properties, through the native C++ reader
+    when its library builds (`native/ply_native.py`), else NumPy's.  A
+    native library that fails to parse the file raises; it does not fall
+    through to the NumPy reader."""
+    from ..native import ply_native
+    if ply_native.available():
+        return ply_native.read_ply_arrays(path)
+    return read_ply_arrays(path)
 
 
 def save_splats(path: str, splats: SplatSet) -> None:

@@ -128,6 +128,11 @@ class GaussianModel(nn.Module):
     def activate(self) -> ActivatedGaussians:
         return activate_leaves(*self.leaves())
 
+    def scene_aabb(self):
+        """(min, max) corners over the Gaussian centers
+        (VulkanFullRT.cpp:1527-1545)."""
+        return torch.amin(self.means, dim=0), torch.amax(self.means, dim=0)
+
     # ---- filtering ----------------------------------------------------------
     def abnormal_mask(self) -> torch.Tensor:
         """True for particles to KEEP: drop |albedo| > 3 or a cumulative

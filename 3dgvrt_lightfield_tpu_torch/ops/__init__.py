@@ -6,7 +6,7 @@ from . import kernels
 from . import quaternion
 from . import sh
 
-from .aabb import intersect_aabb
+from .aabb import gaussian_world_aabb, intersect_aabb
 from .hit import composite_sorted, ray_gaussian_hit
 from .kernels import kernel_scale, particle_response, scale_activation, sigmoid
 from .quaternion import (normalize_quat, quat_to_rot9,

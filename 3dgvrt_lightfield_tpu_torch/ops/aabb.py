@@ -25,3 +25,18 @@ def intersect_aabb(aabb, ray_o: torch.Tensor, ray_d: torch.Tensor):
     tmin = torch.clamp_min(torch.amax(torch.minimum(t0, t1), dim=-1), 0.0)
     tmax = torch.amin(torch.maximum(t0, t1), dim=-1)
     return tmin, tmax
+
+
+def gaussian_world_aabb(means: torch.Tensor, scales: torch.Tensor,
+                        rotmats: torch.Tensor, radius):
+    """Conservative world-space AABB of each Gaussian's iso-response
+    ellipsoid {mean + R @ (radius * scale * u) : |u| = 1}: half-extent
+    radius * sqrt(sum_j (R[i, j] * scale[j])^2) along axis i.
+
+    means, scales (activated): (N, 3); rotmats: (N, 3, 3) local->world;
+    radius: (N,) or a scalar, in scale units.  Returns (lo, hi), each (N, 3).
+    """
+    half = torch.sqrt(torch.sum((rotmats * scales[:, None, :]) ** 2, dim=-1))
+    half = half * torch.as_tensor(radius, dtype=half.dtype,
+                                  device=half.device).reshape(-1, 1)
+    return means - half, means + half

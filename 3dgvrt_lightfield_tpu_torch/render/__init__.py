@@ -1,8 +1,9 @@
 """Renderers: brute-force ground truth, the tiled and the banded paths,
-differentiable."""
+differentiable, and the combined Gaussian-and-mesh render."""
 
 from . import banded
 from . import binning
+from . import combined
 from . import pallas_forward
 from . import pallas_vjp
 from . import param_grads
@@ -18,3 +19,4 @@ from .segreduce import segment_reduce, segment_reduce_compact
 from .reference import render_image, render_rays
 from .tiled import TiledRenderer, render_image_tiled
 from .banded import BandedRenderer, render_image_banded
+from .combined import render_combined

@@ -622,28 +622,34 @@ def plan_capacity(act: ActivatedGaussians, w2c, proj, width, height,
     return plan_capacity_from_table(tab, proj, width, height, cfg, slack, band)
 
 
-def tile_rays(camera, cfg: RenderConfig, device, aabb=None) -> torch.Tensor:
+def tile_rays(camera, cfg: RenderConfig, device, aabb=None,
+              tmax_clip=None) -> torch.Tensor:
     """Per-pixel rays + AABB clip range + SH basis, tiled to (T, 24, R).
 
     Rows 0:8 are [o, d, tmin, tmax]; rows 8:24 are the 16 SH basis values of
     the ray direction (zero above (sh_degree+1)^2), so the tile kernel never
     re-evaluates the basis polynomials per chunk.  The clip box is `aabb`,
-    else cfg.aabb."""
+    else cfg.aabb.  `tmax_clip` (H, W), optional, caps each ray's march
+    distance (combined Gaussian and mesh scenes: an opaque surface ends the
+    march)."""
     o, d = camera.rays()
     o = torch.as_tensor(np.ascontiguousarray(o), device=device)
     d = torch.as_tensor(np.ascontiguousarray(d), device=device)
-    return tile_ray_rows(o, d, cfg, aabb)
+    return tile_ray_rows(o, d, cfg, aabb, tmax_clip)
 
 
 def tile_ray_rows(o: torch.Tensor, d: torch.Tensor, cfg: RenderConfig,
-                  aabb=None) -> torch.Tensor:
+                  aabb=None, tmax_clip=None) -> torch.Tensor:
     """(H, W, 3) origins and unit directions -> the (T, 24, R) tile rays of
     `tile_rays`, differentiable in both (pose refinement builds them in the
-    graph, `train/pose.py`)."""
+    graph, `train/pose.py`).  `tmax_clip` (H, W) caps tmax per pixel."""
     ts = cfg.tile_size
     h, w = o.shape[:2]
     assert h % ts == 0 and w % ts == 0, (h, w, ts)
     tmin, tmax = intersect_aabb(aabb or cfg.aabb, o, d)
+    if tmax_clip is not None:
+        tmax = torch.minimum(tmax, torch.as_tensor(
+            tmax_clip, dtype=tmax.dtype, device=tmax.device))
     basis = sh_basis_components(d[..., 0], d[..., 1], d[..., 2],
                                 cfg.sh_degree)
     basis += [torch.zeros_like(d[..., 0])] * (SH_MAX_NUM_COEFFS - len(basis))

@@ -33,10 +33,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
  3c. the light field of that scene (models/lightfield.py: 4 cameras, 180^2,
      tile 20, 135 degrees) with K1's launches counted, against its plain
      version; K1 timed at one light-field camera's shapes;
+ 3d. the combined Gaussian-and-mesh frame of that scene at 1920x1088
+     (render/combined.py; a quad at z = -3 over the left half, an
+     icosphere in front of the right half) under torch.no_grad(): K1
+     launched once and nothing else, K1 against its plain version on the
+     same binned inputs and the per-pixel clipped rays (hit counts equal on
+     every ray), rgb = gaussian_rgb + T mesh_rgb, hit counts no higher
+     than the unclipped frame's on every ray that did not saturate there,
+     lower in sum over the quad, equal off the mesh; the frame, its mesh
+     pass and its Gaussian pass
+     timed, K1 on the clipped rays timed beside its bound;
+ 3e. the gradient of mean rgb through the combined frame of the
+     3000-Gaussian 128^2 scene: K1's residual, K2 and K3 launched once
+     each, all six parameter groups against the all-plain path, finite
+     after a NaN-poisoned allocator; K1's residual and K2 on its clipped
+     rays against their plain versions;
+ 3f. Gaussian shadows on that frame against the port on the CPU; the
+     shadow pass timed beside its bound;
   4. the serving entry point: the CLI renders 4 orbit frames of that scene
      at 1920x1088 from a PLY, unbanded and with --bands 4, and benchmarks
      it with --bands 4; the CLI's `lightfield` from the PLY (4 PNGs and
      ray_dirs.npy);
+ 4b. the hybrid renderer (hybrid/): the CLI's `hybrid` at 512^2 (one
+     frame, then --glass --frames 2), HybridRenderer's 512^2 frame timed
+     with its trace calls counted, the mesh trace (closest_hit, occluded)
+     timed alone beside its bound, the card's 64^2 frame against the
+     CPU's, the miss path with a ZLIB KTX2 cubemap (save_ktx2,
+     load_cubemap);
+ 4c. the native PLY reader (native/): built with g++, the phase-4 PLY
+     read bit for bit as the NumPy reader reads it, both timed;
   5. the full-width training window (bench.py's protocol): plan with the
      reduce capacity, one topology refresh with the reduce plan, then 10
      steps of rows64_from_model -> gather_from_rows -> forward_dispatch ->
@@ -86,12 +111,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      and K4 on the window's real per-slot cotangents in both modes, timed
      against its plain versions and index_add_, table mode also against
      the two-step route it replaced (compact sums, then the expansion);
- 11. one JSON line per kernel with its launches, error, time and bound
+ 11. the hot spots with no Pallas counterpart (the mesh trace, the
+     Gaussian shadow pass) on one line; one JSON line per kernel with its
+     launches, error, time and bound
      (K1 and K2 also at garden band 0's shapes; their bounds count the
      gate chain as this run's data needs it, chain_counts, with the
      earlier whole-chain count beside them as bound_ms_chain72; K4's
      launches are both modes', its table mode's numbers in `table_mode`;
-     K1's light-field launches and time, and the R = 400 errors);
+     K1's light-field launches and time, and the R = 400 errors; K1's
+     combined-frame launches, error, time and bound, and the launches and
+     errors of K1's residual, K2 and K3 in the differentiated frame);
  12. the last line: {"ok": true, "device": {...}}.
 
 It needs no network and stops every process it starts.  Without CUDA, or
@@ -999,6 +1028,516 @@ def garden_kernel_times(torch, pf, chunks, rays, topo, cfg, name, power):
     return times
 
 
+#: f32 operations per (ray, triangle) pair of the mesh trace, counted from
+#: hybrid/trace.py (`_intersect_chunk`, the gates, the argmin): pvec 9,
+#: det 5, |det| test 2, reciprocal 1, tvec 3, u 6, qvec 9, v 6, t 6, the
+#: barycentric tests 6, the t window and best-hit gates 7, the select 1,
+#: the argmin's compare 1.  The port rounds the products as fused
+#: multiply-adds in f64 (XLA's contraction); the bound counts f32 work.
+OPS_TRACE = 9 + 5 + 2 + 1 + 3 + 6 + 9 + 6 + 6 + 6 + 7 + 1 + 1
+#: f32 operations per (Gaussian, point) pair of the Gaussian shadow pass,
+#: counted from render/combined.py: gro 18, grd 15, |grd|^2 5, cross 9,
+#: 1/|grd|^2 2, gray distance 6, t 7, response (degree 4: 3 mul, exp) 4,
+#: alpha 2, the accept gates 8, the select 1, log1p 1, the sum 1
+OPS_SHADOW = 18 + 15 + 5 + 9 + 2 + 6 + 7 + 4 + 2 + 8 + 1 + 1 + 1
+#: the hybrid frames: the CLI's default size, the card-against-CPU size
+HYBRID_SIZE, HYBRID_CPU_SIZE = 512, 64
+#: cubemap face colours [+X, -X, +Y, -Y, +Z, -Z] of the miss-path check
+FACE_COLORS = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0),
+               (1.0, 1.0, 0.0), (1.0, 0.0, 1.0), (0.0, 1.0, 1.0))
+
+
+def combined_mesh():
+    """The mesh of the combined phases: a quad through the middle of the
+    cloud's depth (z = -3) over the left half of the image (x < 0, normal
+    +z), an icosphere in front of the right half, one light."""
+    from gvrt_tpu_torch.hybrid import mesh
+    s = mesh.MeshScene()
+    pos, idx = mesh._quad([-6, -6, -3.0], [0, -6, -3.0], [0, 6, -3.0],
+                          [-6, 6, -3.0])
+    s.add_object("quad", pos, idx, mesh.Material(
+        base_color=(0.7, 0.7, 0.7, 1.0), metallic=0.0, roughness=0.8))
+    v, f, n = mesh._icosphere(0.4, (0.7, 0.0, -1.6), subdiv=2)
+    s.add_object("ball", v, f, mesh.Material(
+        base_color=(0.8, 0.3, 0.2, 1.0), metallic=0.2, roughness=0.4),
+        normals=n)
+    s.lights.append(mesh.Light(position=(-0.5, 1.5, 0.0), radius=20.0))
+    return s
+
+
+def trace_bound_ms(n_rays, n_tris, per_pair=OPS_TRACE):
+    """The mesh trace's least time: n_rays x n_tris (real triangles) pairs
+    of `per_pair` f32 operations, against the rays read (6 floats, tmin,
+    tmax), the triangles read and the hits written (t, tri, u, v) once."""
+    return roofline(n_rays * (8 + 4) * 4 + n_tris * 9 * 4,
+                    n_rays * n_tris * per_pair)
+
+
+def primary_rays(torch, cam, dev):
+    """A camera's per-pixel rays as (H*W, 6) [o, d] on `dev`."""
+    import numpy as np
+    o, d = cam.rays()
+    return torch.as_tensor(np.concatenate([o, d], -1).reshape(-1, 6),
+                           device=dev)
+
+
+def combined_phases(gt, torch, dev, model, cam, full, full_rays, acc, small,
+                    cam128, base, reset_launches, launches, name, power):
+    """Phases 3d-3f: the combined Gaussian-and-mesh render on the card.
+    3d, the full-width frame of the 300k scene under torch.no_grad(): K1
+    launched once, K1 against its plain version on the same binned inputs
+    and the clipped rays (hit counts equal on every ray), the composite,
+    the clipped hit counts against the unclipped frame's (no higher on a
+    ray that did not saturate unclipped; `full`,
+    `full_rays`, `acc`: phase 3's binned scene, rays and K1 accumulators),
+    the frame's time split into the mesh pass and the Gaussian pass; 3e,
+    the gradient of mean rgb through the 3000-Gaussian 128^2 frame (K1's
+    residual, K2, K3 once each) against the all-plain path, and K1's
+    residual and K2 on its clipped rays against their plain versions; 3f,
+    Gaussian shadows on that frame against the port on the CPU, and the
+    shadow pass timed.  Returns the numbers of the kernels line and the
+    hot spots."""
+    from gvrt_tpu_torch.hybrid import HybridConfig
+    from gvrt_tpu_torch.hybrid import pipeline as hpipe
+    from gvrt_tpu_torch.models.gaussians import LEAVES
+    from gvrt_tpu_torch.render import binning
+    from gvrt_tpu_torch.render import combined as comb
+    from gvrt_tpu_torch.render import pallas_forward as pf
+    from gvrt_tpu_torch.render.tiled import _camera_mats
+    res = {}
+    scene = combined_mesh()
+    hcfg = HybridConfig()
+
+    # ---- 3d. the combined frame at full width -----------------------------
+    t0 = time.time()
+    reset_launches()
+    with torch.no_grad():
+        out = comb.render_combined(model, scene, cam, base)
+    torch.cuda.synchronize()
+    served = launches()
+    if served["tile_forward"] != 1 or any(
+            served[k] for k in served if k != "tile_forward"):
+        fail(f"the combined frame launched {served}: K1 once and nothing "
+             f"else expected")
+    h, w = FULL_H, FULL_W
+    with torch.no_grad():
+        rays = binning.tile_rays(cam, base, dev, tmax_clip=out["mesh_t"])
+        got = pf.tile_forward(full.chunks, rays, full.tile_counts, base)
+        plain_ms, want = event_ms(lambda: pf.forward_tiles_reference(
+            full, rays, base))
+        err = compare_acc(got, want, "combined_full_width_clipped")
+        hits_every_ray = torch.equal(got[:, 5], want[:, 5])
+        hits = binning.untile(got[:, 5:6], w, h, base.tile_size)[..., 0]
+        hits_u = binning.untile(acc[:, 5:6], w, h, base.tile_size)[..., 0]
+        # a ray that saturated unclipped (T at or below min_transmittance
+        # ends the walk) may accept more pairs when the clip rejects an
+        # early (in depth-key order) but far (in t) one; any other ray
+        # accepts a subset of its unclipped pairs
+        t_u = binning.untile(acc[:, 4:5], w, h, base.tile_size)[..., 0]
+        gains = hits > hits_u
+        on_mesh = out["mesh_t"].isfinite()
+        quad = on_mesh.clone()
+        quad[:, w // 2:] = False
+        composite = float((out["rgb"] - (out["gaussian_rgb"]
+                           + out["transmittance"][..., None]
+                           * out["mesh_rgb"])).abs().max())
+        check = {
+            "launches": served, "overflow": int(out["overflow"]),
+            "hits_equal_every_ray": hits_every_ray,
+            "frame_hits_are_the_kernels": torch.equal(out["hit_count"], hits),
+            "mesh_pixels": int(on_mesh.sum()), "quad_pixels": int(quad.sum()),
+            "clipped_rays": int((rays[:, 7] < full_rays[:, 7]).sum()),
+            "pixels_gaining_hits": int(gains.sum()),
+            "gains_only_on_saturated_rays": bool(
+                (t_u[gains] <= base.min_transmittance).all()),
+            "quad_hits": float(hits[quad].sum()),
+            "quad_hits_unclipped": float(hits_u[quad].sum()),
+            "off_mesh_hits_equal": torch.equal(hits[~on_mesh],
+                                               hits_u[~on_mesh]),
+            "composite_max_abs": composite,
+            "finite": all(bool(out[k].isfinite().all()) for k in (
+                "rgb", "gaussian_rgb", "mesh_rgb", "depth",
+                "transmittance")),
+            "mean_hits_per_ray": float(hits.mean())}
+        print(json.dumps({"phase": "combined_full_width", **check}),
+              flush=True)
+        if not (hits_every_ray and check["frame_hits_are_the_kernels"]
+                and check["gains_only_on_saturated_rays"]
+                and check["off_mesh_hits_equal"] and check["finite"]
+                and check["quad_hits"] < check["quad_hits_unclipped"]
+                and check["overflow"] == 0 and composite <= 1e-6
+                and check["quad_pixels"] > 0
+                and check["mesh_pixels"] > check["quad_pixels"]):
+            fail(f"combined frame: {check}")
+        # K1 alone on the clipped rays, bounded by what this data needs:
+        # chain_counts takes T at each chunk's start from the plain version
+        # on these rays, and the kernels test the cutoff without tmax, so
+        # the count holds on clipped rays too
+        k_ms = cuda_ms(lambda: pf.tile_forward(full.chunks, rays,
+                                               full.tile_counts, base))
+        n = chain_counts(full, rays, base)
+        bnd = bound_ms(full, rays, got, base, n)
+        act = model.activate()
+        mats = _camera_mats(cam)
+        cap = binning.plan_capacity(act, *mats, w, h, base)
+        dev_scene = hpipe._DeviceScene(scene, hcfg, dev)
+        t_mesh = out["mesh_t"]
+        prim = primary_rays(torch, cam, dev)
+
+        def gaussian_pass():
+            r = binning.tile_rays(cam, base, dev, tmax_clip=t_mesh)
+            b = binning.bin_gaussians(act, *mats, w, h, base, *cap)
+            return binning.untile(pf.forward_dispatch(b, r, base, "cuda"), w,
+                                  h, base.tile_size)
+
+        times = {
+            "frame_ms": cuda_ms(lambda: comb.render_combined(
+                model, scene, cam, base, capacity=cap), n=5),
+            "mesh_pass_ms": cuda_ms(lambda: comb._mesh_pass(
+                hpipe._DeviceScene(scene, hcfg, dev), hcfg, cam), n=5),
+            "gaussian_pass_ms": cuda_ms(gaussian_pass, n=5),
+            "closest_hit_ms": cuda_ms(lambda: dev_scene.closest_hit(prim),
+                                      n=3),
+            # the host's share of each pass: the camera's rays, made in
+            # NumPy (float64) and copied to the card
+            "mesh_rays_ms": cuda_ms(lambda: primary_rays(torch, cam, dev),
+                                    n=3),
+            "tile_rays_ms": cuda_ms(lambda: binning.tile_rays(
+                cam, base, dev, tmax_clip=t_mesh), n=3)}
+    tb = trace_bound_ms(h * w, scene.num_tris)
+    res["combined_k1"] = {"launches": served["tile_forward"],
+                          "max_abs_err": err, "ms": k_ms,
+                          "plain_ms": plain_ms, "bound_ms": bnd[0],
+                          "bound_by": bnd[1], "library_ms": None}
+    res["combined_trace"] = {"calls_per_frame": 1, "rays": h * w,
+                             "triangles": scene.num_tris,
+                             "ms": times["closest_hit_ms"],
+                             "bound_ms": tb[0], "bound_by": tb[1]}
+    res["combined_times"] = times
+    print(json.dumps({"phase": "combined_full_width_times", **times,
+                      "tile_forward": res["combined_k1"],
+                      "closest_hit": res["combined_trace"],
+                      "chain_counts": n, "card": name, "power_limit": power,
+                      "seconds": time.time() - t0}), flush=True)
+    del out, rays, got, want, hits, hits_u, dev_scene, act, prim, t_mesh
+
+    # ---- 3e. the differentiated combined frame ----------------------------
+    t0 = time.time()
+    m = gt.GaussianModel(*(p.detach().clone() for p in small.leaves()))
+    mats = _camera_mats(cam128)
+    with torch.no_grad():
+        cap_s = binning.plan_capacity(m.activate(), *mats, 128, 128, base)
+
+    def grads(impl):
+        m.zero_grad(set_to_none=True)
+        o = comb.render_combined(m, scene, cam128, base, impl=impl,
+                                 capacity=cap_s)
+        o["rgb"].mean().backward()
+        return o, {k: getattr(m, k).grad.clone() for k in LEAVES}
+
+    poison_allocator(torch, 1 << 28, dev)
+    reset_launches()
+    out_k, g_k = grads("cuda")
+    torch.cuda.synchronize()
+    diffed = launches()
+    out_p, g_p = grads("torch")
+    rel = {k: rel_l2(g_k[k], g_p[k]) for k in LEAVES}
+    finite = all(bool(v.isfinite().all()) for v in g_k.values()) and all(
+        bool(out_k[k].isfinite().all()) for k in (
+            "rgb", "gaussian_rgb", "mesh_rgb", "depth", "transmittance"))
+    want_l = {"tile_forward": 0, "tile_forward_residual": 1,
+              "tile_backward": 1, "segment_reduce": 1,
+              "segment_reduce_compact": 0, "segment_reduce_compact_table": 0}
+    with torch.no_grad():
+        act_s = m.activate()
+        topo_s = binning.bin_topology(act_s, *mats, 128, 128, base, *cap_s)
+        binned_s = binning.binned_scene(
+            binning.gather_chunks(act_s, topo_s, base), topo_s)
+        rays_s = binning.tile_rays(cam128, base, dev,
+                                   tmax_clip=out_k["mesh_t"].detach())
+        clipped_s = int((rays_s[:, 7] < binning.tile_rays(
+            cam128, base, dev)[:, 7]).sum())
+    tin_err, k2_err = check_training_kernels(
+        torch, binned_s, rays_s, base, "combined_128px_clipped", 18)
+    print(json.dumps({"phase": "combined_gradient", "launches": diffed,
+                      "rel_l2": rel, "finite": finite,
+                      "clipped_rays": clipped_s,
+                      "mesh_pixels": int(out_k["mesh_t"].isfinite().sum()),
+                      "card": name, "power_limit": power,
+                      "seconds": time.time() - t0}), flush=True)
+    if diffed != want_l:
+        fail(f"the differentiated combined frame launched {diffed}, "
+             f"expected {want_l}")
+    if max(rel.values()) > 1e-4 or not finite or not clipped_s or not all(
+            float(v.abs().max()) > 0 for v in g_p.values()):
+        fail(f"combined frame gradients, kernels against plain: {rel}, "
+             f"finite {finite}, clipped rays {clipped_s}")
+    res["combined_grad"] = {"launches": diffed, "t_in_max_abs_err": tin_err,
+                            "tile_backward_max_abs_err": k2_err,
+                            "grad_rel_l2_max": max(rel.values())}
+    del out_k, out_p, g_k, g_p, binned_s, rays_s, topo_s, act_s
+
+    # ---- 3f. Gaussian shadows on the small frame --------------------------
+    t0 = time.time()
+    with torch.no_grad():
+        sh_ms, sh = event_ms(lambda: comb.render_combined(
+            m, scene, cam128, base, capacity=cap_s, gaussian_shadows=True))
+        cpu_m = gt.GaussianModel.from_numpy(m.to_numpy(), device="cpu")
+        sh_cpu = comb.render_combined(cpu_m, scene, cam128, base,
+                                      capacity=cap_s, gaussian_shadows=True)
+        d_mesh = float((sh["mesh_rgb"].cpu() - sh_cpu["mesh_rgb"])
+                       .abs().max())
+        same_mesh = torch.equal(sh["mesh_t"].isinf().cpu(),
+                                sh_cpu["mesh_t"].isinf())
+        d_rgb = (sh["rgb"].cpu() - sh_cpu["rgb"]).abs().amax(-1)
+        rgb_frac = float((d_rgb <= 1e-5).float().mean())
+        hits_frac = float((sh["hit_count"].cpu() == sh_cpu["hit_count"])
+                          .float().mean())
+        unshadowed = comb.render_combined(m, scene, cam128, base,
+                                          capacity=cap_s)
+        darkened = int((unshadowed["mesh_rgb"] - sh["mesh_rgb"]).sum(-1)
+                       .gt(1e-3).sum())
+        # the shadow pass alone: every pixel's surface point (misses too, as
+        # the mesh pass shades them) to the light
+        dev_scene = hpipe._DeviceScene(scene, hcfg, dev)
+        prim = primary_rays(torch, cam128, dev)
+        surf = hpipe._surface_attributes(dev_scene, dev_scene.closest_hit(
+            prim), prim)
+        act_d = m.activate()
+        light = dev_scene.lights[0, 0:3]
+        pass_ms = cuda_ms(lambda: comb.gaussian_shadow_transmittance(
+            act_d, surf["pos"], light, base), n=5)
+    pairs = m.num_gaussians * prim.shape[0]
+    sb = roofline(prim.shape[0] * 4 * 4 + m.num_gaussians * 13 * 4,
+                  pairs * OPS_SHADOW)
+    res["shadow"] = {"calls_per_frame": len(scene.lights),
+                     "points": prim.shape[0], "gaussians": m.num_gaussians,
+                     "pairs_per_light": pairs, "ms": pass_ms,
+                     "ns_per_pair": pass_ms * 1e6 / pairs,
+                     "bound_ms": sb[0], "bound_by": sb[1]}
+    check = {"mesh_rgb_max_abs_vs_cpu": d_mesh,
+             "mesh_t_inf_equal": same_mesh,
+             "rgb_frac_within_1e-5": rgb_frac,
+             "rgb_max_abs_vs_cpu": float(d_rgb.max()),
+             "hits_frac_equal": hits_frac, "darkened_pixels": darkened,
+             "frame_ms": sh_ms}
+    print(json.dumps({"phase": "combined_gaussian_shadows", **check,
+                      "shadow_pass": res["shadow"], "card": name,
+                      "power_limit": power, "seconds": time.time() - t0}),
+          flush=True)
+    if d_mesh > 1e-5 or not same_mesh or rgb_frac < 0.9999 or \
+            float(d_rgb.max()) > 5e-3 or hits_frac < 0.9999 or \
+            not darkened:
+        fail(f"Gaussian shadows on the card against the CPU: {check}")
+    return res
+
+
+def hybrid_phase(gt, torch, dev, tmp, name, power):
+    """Phase 4b: the hybrid renderer on the card.  The CLI's `hybrid` at its
+    default 512^2 (one frame) and `--glass --frames 2`; HybridRenderer's
+    512^2 frame timed, with the mesh trace calls of one frame counted and
+    the trace timed alone at its primary and shadow rays; the card's frame
+    against the port's on the CPU at 64^2; the miss path with a cubemap
+    that save_ktx2 wrote (ZLIB) and load_cubemap read.  Returns the hot
+    spots' numbers."""
+    import numpy as np
+    from gvrt_tpu_torch.hybrid import (HybridConfig, HybridRenderer,
+                                       cornell_scene, mesh)
+    from gvrt_tpu_torch.hybrid import pipeline as hpipe
+    from gvrt_tpu_torch.io import ktx
+    t0 = time.time()
+    runs = {}
+    # both CLI runs at once (each spends most of its time starting up)
+    procs = {}
+    for label, extra, frames in (("default", [], 1),
+                                 ("glass_2_frames",
+                                  ["--glass", "--frames", "2"], 2)):
+        out_dir = os.path.join(tmp, f"hybrid_{label}")
+        procs[label] = (subprocess.Popen(
+            [sys.executable, "-m", PKG, "hybrid", "--out", out_dir, *extra],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), out_dir, frames)
+    logs = {}
+    try:
+        for label, (proc, _, _) in procs.items():
+            logs[label] = proc.communicate(timeout=600)[0]
+    finally:
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for label, (proc, out_dir, frames) in procs.items():
+        if proc.returncode != 0:
+            fail(f"CLI hybrid ({label}) failed:\n{logs[label]}")
+        pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+        imgs = [gt.io.load_png(os.path.join(out_dir, f)) for f in pngs]
+        runs[label] = {"pngs": pngs,
+                       "max_level": [int(x.max()) for x in imgs],
+                       "shapes": [list(x.shape) for x in imgs]}
+        if pngs != [f"hybrid_{i:04d}.png" for i in range(frames)] or \
+                not all(int(x.max()) > 0 for x in imgs) or \
+                any(x.shape != (HYBRID_SIZE, HYBRID_SIZE, 3) for x in imgs):
+            fail(f"CLI hybrid ({label}) wrote {runs[label]}")
+    runs["seconds"] = time.time() - t0
+    print(json.dumps({"phase": "cli_hybrid", **runs, "card": name,
+                      "power_limit": power}), flush=True)
+
+    # HybridRenderer at 512^2 from the CLI's first camera; the trace calls
+    # of one frame counted
+    scene = cornell_scene(with_mirror=True)
+    pts = scene.tri_pos.reshape(-1, 3)
+    lo, hi = pts.min(0), pts.max(0)
+    center = (lo + hi) / 2
+    eye = center + float(np.linalg.norm(hi - lo)) * 0.9 * np.asarray(
+        [0.0, 0.15, 1.0])
+    c2w = gt.io.cameras.look_at_inverse(eye, center,
+                                        np.asarray([0.0, 1.0, 0.0]))
+    cam = gt.Camera.from_fovy(HYBRID_SIZE, HYBRID_SIZE, 60.0, c2w)
+    hcfg = HybridConfig()
+    r = HybridRenderer(HYBRID_SIZE, HYBRID_SIZE, hcfg, device=dev)
+    calls = {"closest_hit": 0, "occluded": 0}
+    real_occ = hpipe.occluded
+    real_ch = hpipe._DeviceScene.closest_hit
+
+    def occ(*a, **kw):
+        calls["occluded"] += 1
+        return real_occ(*a, **kw)
+
+    def ch(self, rays):
+        calls["closest_hit"] += 1
+        return real_ch(self, rays)
+
+    hpipe.occluded, hpipe._DeviceScene.closest_hit = occ, ch
+    try:
+        frame = r.render(scene, cam)
+        torch.cuda.synchronize()
+    finally:
+        hpipe.occluded, hpipe._DeviceScene.closest_hit = real_occ, real_ch
+    if not bool(frame["rgb"].isfinite().all()) or not float(
+            frame["rgb"].max()) > 0 or not bool((frame["object"] >= 0).any()):
+        fail("the hybrid frame at 512^2 is empty or not finite")
+    frame_ms = cuda_ms(lambda: r.render(scene, cam), n=5)
+    # the trace alone at the frame's primary rays and at its shadow rays
+    dev_scene = hpipe._DeviceScene(scene, hcfg, dev)
+    prim = primary_rays(torch, cam, dev)
+    surf = hpipe._surface_attributes(dev_scene, dev_scene.closest_hit(prim),
+                                     prim)
+    to_l = dev_scene.lights[0, 0:3] - surf["pos"]
+    dist = torch.linalg.vector_norm(to_l, dim=-1)
+    sdir = to_l / dist.clamp_min(1e-12)[:, None]
+    srays = torch.cat([surf["pos"] + sdir * 0.1, sdir], dim=1)
+    stmax = torch.where(dist >= 0.5, dist - 0.5, dist)
+    stmin = torch.full_like(dist, 0.1)
+    ch_ms = cuda_ms(lambda: dev_scene.closest_hit(prim), n=5)
+    occ_ms = cuda_ms(lambda: hpipe.occluded(srays, dev_scene.tris, stmin,
+                                            stmax, batch=hcfg.ray_block),
+                     n=5)
+    n_rays, n_tris = prim.shape[0], scene.num_tris
+    ch_b = trace_bound_ms(n_rays, n_tris)
+    # occluded: the same pairs without the best-hit gate and the argmin
+    occ_b = trace_bound_ms(n_rays, n_tris, OPS_TRACE - 3)
+    hot = {"frame_ms": frame_ms,
+           "closest_hit": {"calls_per_frame": calls["closest_hit"],
+                           "rays": n_rays, "triangles": n_tris,
+                           "ms": ch_ms, "bound_ms": ch_b[0],
+                           "bound_by": ch_b[1]},
+           "occluded": {"calls_per_frame": calls["occluded"],
+                        "rays": n_rays, "triangles": n_tris, "ms": occ_ms,
+                        "bound_ms": occ_b[0], "bound_by": occ_b[1]}}
+    print(json.dumps({"phase": "hybrid_frame", "size": HYBRID_SIZE, **hot,
+                      "hit_pixels": int((frame["object"] >= 0).sum()),
+                      "card": name, "power_limit": power}), flush=True)
+
+    # the card's frame against the port's on the CPU
+    small_cam = gt.Camera.from_fovy(HYBRID_CPU_SIZE, HYBRID_CPU_SIZE, 60.0,
+                                    c2w)
+    glass = cornell_scene(with_mirror=True, with_glass=True)
+    a = HybridRenderer(HYBRID_CPU_SIZE, HYBRID_CPU_SIZE, hcfg,
+                       device=dev).render(glass, small_cam, time=0.25)
+    b = HybridRenderer(HYBRID_CPU_SIZE, HYBRID_CPU_SIZE, hcfg,
+                       device="cpu").render(glass, small_cam, time=0.25)
+    d = (a["rgb"].cpu() - b["rgb"]).abs().amax(-1)
+    vs_cpu = {"rgb_frac_within_1e-4": float((d <= 1e-4).float().mean()),
+              "rgb_max_abs": float(d.max()),
+              "object_frac_equal": float((a["object"].cpu() == b["object"])
+                                         .float().mean())}
+
+    # the miss path: a cubemap written by save_ktx2 (ZLIB) and read back by
+    # load_cubemap behind a small tile, so most pixels miss
+    faces = np.broadcast_to(np.asarray(FACE_COLORS, np.float32)[
+        :, None, None, :], (6, 16, 16, 3)).copy()
+    sky_path = os.path.join(tmp, "sky.ktx2")
+    ktx.save_ktx2(sky_path, faces, supercompression="zlib")
+    sky = mesh.MeshScene()
+    pos, idx = mesh._quad([-0.2, -0.2, -2], [0.2, -0.2, -2], [0.2, 0.2, -2],
+                          [-0.2, 0.2, -2])
+    sky.add_object("tile", pos, idx, mesh.Material())
+    sky.lights.append(mesh.Light(position=(0.0, 0.0, 0.0), radius=10.0))
+    sky.env_cube = gt.io.load_cubemap(sky_path)
+    sky_cam = gt.Camera.from_fovy(HYBRID_CPU_SIZE, HYBRID_CPU_SIZE, 120.0,
+                                  np.eye(4))
+    out = HybridRenderer(HYBRID_CPU_SIZE, HYBRID_CPU_SIZE, hcfg,
+                         device=dev).render(sky, sky_cam)
+    dirs = sky_cam.rays()[1].reshape(-1, 3)
+    ax = np.abs(dirs)
+    face = np.where((ax[:, 0] >= ax[:, 1]) & (ax[:, 0] >= ax[:, 2]),
+                    np.where(dirs[:, 0] >= 0, 0, 1),
+                    np.where((ax[:, 1] > ax[:, 0]) & (ax[:, 1] >= ax[:, 2]),
+                             np.where(dirs[:, 1] >= 0, 2, 3),
+                             np.where(dirs[:, 2] >= 0, 4, 5)))
+    miss = out["object"].reshape(-1).cpu().numpy() < 0
+    bg_err = float(np.abs(out["rgb"].reshape(-1, 3).cpu().numpy()[miss]
+                          - faces[face[miss], 0, 0]).max())
+    faces_seen = sorted(set(face[miss].tolist()))
+    print(json.dumps({"phase": "hybrid_vs_cpu", "size": HYBRID_CPU_SIZE,
+                      **vs_cpu, "cubemap_miss_pixels": int(miss.sum()),
+                      "cubemap_faces_seen": faces_seen,
+                      "cubemap_max_abs": bg_err, "card": name,
+                      "power_limit": power,
+                      "seconds": time.time() - t0}), flush=True)
+    if vs_cpu["rgb_frac_within_1e-4"] < 0.999 or \
+            vs_cpu["object_frac_equal"] < 0.999:
+        fail(f"the hybrid frame on the card against the CPU: {vs_cpu}")
+    if bg_err > 1e-6 or not miss.any() or miss.all() or len(faces_seen) < 3:
+        fail(f"the hybrid miss path: max abs {bg_err} against the "
+             f"cubemap's faces, {int(miss.sum())} misses, faces {faces_seen}")
+    return hot
+
+
+def native_ply_phase(ply, name, power):
+    """Phase 4c: the native PLY reader builds on this machine (g++) and
+    reads the phase-4 PLY bit for bit as the NumPy reader does; both
+    timed (host clock, median of 3)."""
+    import numpy as np
+    from gvrt_tpu_torch.io import ply as tply
+    from gvrt_tpu_torch.native import ply_native
+    t0 = time.time()
+    if not ply_native.available():
+        fail("the native PLY reader did not build")
+    build_s = time.time() - t0
+    times, arrays = {"native": [], "numpy": []}, {}
+    for _ in range(3):
+        for key, fn in (("native", ply_native.read_ply_arrays),
+                        ("numpy", tply.read_ply_arrays)):
+            t1 = time.perf_counter()
+            arrays[key] = fn(ply)
+            times[key].append(1e3 * (time.perf_counter() - t1))
+    a, b = arrays["native"], arrays["numpy"]
+    same = set(a) == set(b) and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+    print(json.dumps({"phase": "native_ply",
+                      "library": os.path.relpath(ply_native.library_path(),
+                                                 ROOT),
+                      "build_s": build_s, "properties": len(a),
+                      "rows": int(len(a["x"])), "bit_equal": same,
+                      "native_ms": float(np.median(times["native"])),
+                      "numpy_ms": float(np.median(times["numpy"])),
+                      "card": name, "power_limit": power}),
+          flush=True)
+    if not same:
+        fail("the native PLY reader disagrees with the NumPy reader")
+
+
 def main():
     import numpy as np
     import torch
@@ -1280,6 +1819,11 @@ def main():
                       "seconds": time.time() - t0}), flush=True)
     del lf_plain, lf_scene, lf_rays, lf_acc
 
+    # ---- 3d-3f. the combined Gaussian-and-mesh render --------------------
+    comb_res = combined_phases(gt, torch, dev, model, cam, full, full_rays,
+                               acc, small, cam128, base, reset_launches,
+                               launches, name, power)
+
     with tempfile.TemporaryDirectory() as tmp:
         # ---- 4. the CLI on a PLY -----------------------------------------
         ply = os.path.join(tmp, "bench_scene.ply")
@@ -1358,6 +1902,10 @@ def main():
                 lf_dirs.shape != (4, 180, 180, 3):
             fail(f"CLI lightfield wrote {lf_pngs}, ray_dirs "
                  f"{lf_dirs.shape}")
+
+        # ---- 4b. the hybrid renderer; 4c. the native PLY reader ----------
+        hybrid_res = hybrid_phase(gt, torch, dev, tmp, name, power)
+        native_ply_phase(ply, name, power)
 
         # ---- 5. the full-width training window ---------------------------
         trainer_r = TiledRenderer(FULL_W, FULL_H, base, device=dev)
@@ -1886,24 +2434,42 @@ def main():
                                     "bound_ms_chain72": g_b72_ms}
         return line
 
+    # the hot spots with no Pallas counterpart (plain PyTorch), per frame
+    comb_grad = comb_res["combined_grad"]
+    print(json.dumps({"phase": "hot_spots", "card": name,
+                      "power_limit": power,
+                      "hybrid_frame_ms": hybrid_res["frame_ms"],
+                      "hybrid_closest_hit": hybrid_res["closest_hit"],
+                      "hybrid_occluded": hybrid_res["occluded"],
+                      "combined_frame": comb_res["combined_times"],
+                      "combined_closest_hit": comb_res["combined_trace"],
+                      "gaussian_shadow_transmittance": comb_res["shadow"]}),
+          flush=True)
     vjp = "3dgvrt_lightfield_tpu/render/pallas_vjp.py"
     print(json.dumps({"kernels": [
         # the light field's run beside: its launches and K1 at its shapes
         entry("tile_forward", "tile_forward.cu", f"{vjp}:74",
               serve_launches["tile_forward"], max(errs + [full_err]), k_ms,
               plain_ms, k1_bound, None, lightfield=lightfield,
-              r400_max_abs_err=r400["tile_forward"]),
+              r400_max_abs_err=r400["tile_forward"],
+              combined=comb_res["combined_k1"]),
         entry("tile_forward_residual", "tile_forward.cu", f"{vjp}:74",
               train_launches["tile_forward_residual"],
               max(tin_errs + [res_err]), res_ms, res_plain_ms,
               res_bound, None,
-              r400_max_abs_err=r400["tile_forward_residual"]),
+              r400_max_abs_err=r400["tile_forward_residual"],
+              combined={"launches": comb_grad["launches"][
+                  "tile_forward_residual"],
+                  "max_abs_err": comb_grad["t_in_max_abs_err"]}),
         # the ray-cotangent instances beside: launches on the pose path
         entry("tile_backward", "tile_backward.cu", f"{vjp}:99",
               train_launches["tile_backward"], max(k2_errs + [k2_err]),
               k2_ms, k2_plain_ms, k2_bound, None,
               r400_max_abs_err=max(r400["tile_backward"],
                                    r400["tile_backward_ray_gradients"]),
+              combined={"launches": comb_grad["launches"]["tile_backward"],
+                        "max_abs_err": comb_grad[
+                            "tile_backward_max_abs_err"]},
               ray_gradients={
                   "launches": pose_launches["tile_backward"],
                   "max_abs_err": k2r["max_abs_err"], "ms": k2r["ms"],
@@ -1914,7 +2480,9 @@ def main():
         entry("segment_reduce", "segment_reduce.cu",
               "3dgvrt_lightfield_tpu/render/segreduce.py:129",
               train_launches["segment_reduce"], k3_err, k3_ms, k3_plain_ms,
-              (k3_b_ms, k3_b_by), k3_lib_ms),
+              (k3_b_ms, k3_b_by), k3_lib_ms,
+              combined={"launches": comb_grad["launches"][
+                  "segment_reduce"]}),
         # launches of both modes; the times and bound of compact mode (the
         # JAX kernel's function), table mode's (the step's route) beside
         entry("segment_reduce_compact", "segment_reduce_compact.cu",

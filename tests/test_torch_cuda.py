@@ -35,6 +35,16 @@ kernel tolerances):
   * The whole training step, kernels against plain versions, unbanded and
     banded (stride, span, balanced): relative L2 <= 1e-4 per parameter
     group.
+  * K1 (serving and residual) and K2 on rays whose tmax is clipped per
+    pixel (the combined Gaussian-and-mesh render's rays: a finite clip
+    inside the cloud on part of the frame, inf elsewhere) at R = 64 and
+    256: K1's limits above with hit counts equal on every ray, no ray that
+    did not saturate unclipped with more hits than unclipped; K2's limits
+    above.
+  * The mesh trace (`hybrid.trace.closest_hit`, `occluded`) and a hybrid
+    frame on the card against the port on the CPU: triangle ids,
+    occlusion and object ids equal, t within 1e-6 relative, rgb within
+    1e-5.
   * The pose gradient (d loss / d delta_t, d loss / d delta_r of
     `train.pose.pose_loss`: K1's residual, then K2 with ray cotangents)
     against the plain versions at R = 64 and R = 256, after a NaN-poisoned
@@ -656,3 +666,70 @@ def test_pose_gradient_kernels_match_plain(cuda, tile):
     for got, want in zip(grads["cuda"], grads["torch"]):
         assert bool(got.isfinite().all()) and float(want.abs().max()) > 0
         assert _rel_l2(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("tile", [8, 16], ids=["R64", "R256"])
+def test_kernels_on_clipped_rays(cuda, tile):
+    """The combined render's rays: tmax clipped per pixel inside the cloud
+    (z = -3 +- 0.8) on the left half, inf on the right half and on every
+    fifth row; the accept gate t < tmax then cuts chunk runs short."""
+    cfg = BASE.replace(tile_size=tile)
+    scene, full = _binned(cuda, cfg, pad_factor=2)
+    cam = gt.Camera.from_fovy(96, 96, 60.0, np.eye(4))
+    g = torch.Generator(device=cuda).manual_seed(tile)
+    clip = 2.6 + 0.8 * torch.rand((96, 96), generator=g, device=cuda)
+    clip[:, 48:] = float("inf")
+    clip[::5] = float("inf")
+    rays = binning.tile_rays(cam, cfg, cuda, tmax_clip=clip)
+    assert bool((rays[:, 7] < full[:, 7]).any())
+    torch.full((scene.chunks.numel() * 2,), float("nan"), device=cuda)
+    got = _assert_kernel_matches_plain(scene, rays, cfg)
+    with torch.no_grad():
+        want = pf.forward_dispatch(scene, rays, cfg, "torch")
+        unclipped = pf.forward_dispatch(scene, full, cfg, "cuda")
+    assert torch.equal(got[:, 5], want[:, 5])
+    # only a ray that saturated unclipped can accept more pairs clipped
+    # (the clip rejects an early, in depth-key order, but far pair)
+    gains = got[:, 5] > unclipped[:, 5]
+    assert bool((unclipped[:, 4][gains] <= cfg.min_transmittance).all())
+    assert bool((got[:, 5] < unclipped[:, 5]).any())
+    _assert_training_kernels_match_plain(scene, rays, cfg, False)
+
+
+def test_mesh_trace_on_the_card_matches_the_cpu(cuda):
+    from gvrt_tpu_torch.hybrid import (HybridConfig, HybridRenderer,
+                                       cornell_scene)
+    from gvrt_tpu_torch.hybrid import trace
+    rng = np.random.default_rng(5)
+    tri = (rng.uniform(-4, 4, (700, 1, 3))
+           + 0.4 * rng.standard_normal((700, 3, 3))).astype(np.float32)
+    o = rng.uniform(-6, 6, (5000, 3))
+    d = rng.standard_normal((5000, 3))
+    d[:500] = np.eye(3)[rng.integers(0, 3, 500)]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = torch.from_numpy(np.concatenate([o, d], 1).astype(np.float32))
+    tmin = torch.full((5000,), 0.1)
+    tmax = torch.from_numpy(rng.uniform(2, 12, 5000).astype(np.float32))
+    for chunk in (256, 512):
+        packs = [trace.pack_triangles(tri, chunk, device=dev)
+                 for dev in ("cpu", cuda)]
+        cpu = trace.closest_hit(rays, packs[0], tmin=tmin, block=512)
+        card = trace.closest_hit(rays.to(cuda), packs[1],
+                                 tmin=tmin.to(cuda), block=512)
+        assert torch.equal(card["tri"].cpu(), cpu["tri"])
+        for k in ("t", "u", "v"):
+            torch.testing.assert_close(card[k].cpu(), cpu[k], rtol=1e-6,
+                                       atol=1e-6)
+        assert torch.equal(
+            trace.occluded(rays.to(cuda), packs[1], tmin.to(cuda),
+                           tmax.to(cuda), block=512).cpu(),
+            trace.occluded(rays, packs[0], tmin, tmax, block=512))
+    c2w = np.eye(4)
+    c2w[:3, 3] = [0.0, 1.0, 3.2]
+    cam = gt.Camera.from_fovy(32, 32, 60.0, c2w)
+    scene = cornell_scene(with_glass=True)
+    hc = HybridConfig(tri_chunk=256)
+    a = HybridRenderer(32, 32, hc, device=cuda).render(scene, cam)
+    b = HybridRenderer(32, 32, hc, device="cpu").render(scene, cam)
+    assert torch.equal(a["object"].cpu(), b["object"])
+    torch.testing.assert_close(a["rgb"].cpu(), b["rgb"], rtol=0, atol=1e-5)

@@ -7,6 +7,7 @@ different libm paths (a few ulp), everything else is the same f32 op order.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -103,3 +104,34 @@ def test_intersect_aabb_matches_jax():
                                                 torch.from_numpy(d)))
     np.testing.assert_allclose(b0.numpy(), np.asarray(a0), rtol=RTOL)
     np.testing.assert_allclose(b1.numpy(), np.asarray(a1), rtol=RTOL)
+
+
+@pytest.mark.parametrize("radius", ["scalar", "per_gaussian"])
+def test_gaussian_world_aabb_matches_jax(radius):
+    rng = np.random.default_rng(6)
+    means = rng.normal(size=(1024, 3)).astype(np.float32)
+    scales = np.exp(rng.uniform(-5, -1, (1024, 3))).astype(np.float32)
+    q = rng.normal(size=(1024, 4)).astype(np.float32)
+    rot = np.array(g3.ops.quat_to_rotmat(g3.ops.normalize_quat(
+        jnp.asarray(q))))
+    r = (np.float32(3.0) if radius == "scalar"
+         else rng.uniform(1, 4, 1024).astype(np.float32))
+    want = g3.ops.gaussian_world_aabb(jnp.asarray(means), jnp.asarray(scales),
+                                      jnp.asarray(rot), jnp.asarray(r))
+    got = gt.ops.gaussian_world_aabb(torch.from_numpy(means),
+                                     torch.from_numpy(scales),
+                                     torch.from_numpy(rot),
+                                     torch.as_tensor(r))
+    for a, b in zip(want, got):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=RTOL,
+                                   atol=1e-7)
+    assert bool((got[0] < got[1]).all())
+
+
+def test_scene_aabb_matches_jax():
+    jm = g3.random_gaussians(jax.random.key(7), 500, extent=1.3)
+    tm = gt.GaussianModel.from_numpy(
+        {k: np.asarray(getattr(jm, k)) for k in gt.models.gaussians.LEAVES},
+        device="cpu")
+    for a, b in zip(jm.scene_aabb(), tm.scene_aabb()):
+        np.testing.assert_array_equal(b.detach().numpy(), np.asarray(a))

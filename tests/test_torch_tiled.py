@@ -193,7 +193,10 @@ def test_import_loads_neither_jax_nor_the_jax_package():
             "gvrt_tpu_torch.utils.evaluate, gvrt_tpu_torch.app, "
             "gvrt_tpu_torch.parallel.distributed, "
             "gvrt_tpu_torch.models.lightfield, "
-            "gvrt_tpu_torch.utils.profiling, gvrt_tpu_torch.utils.debug\n"
+            "gvrt_tpu_torch.utils.profiling, gvrt_tpu_torch.utils.debug, "
+            "gvrt_tpu_torch.hybrid.pipeline, gvrt_tpu_torch.hybrid.trace, "
+            "gvrt_tpu_torch.render.combined, gvrt_tpu_torch.io.ktx, "
+            "gvrt_tpu_torch.native.ply_native\n"
             "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
             " or k in ('3dgvrt_lightfield_tpu', 'gvrt_tpu')"
             " or k.startswith(('3dgvrt_lightfield_tpu.', 'gvrt_tpu.'))]\n"
