@@ -26,8 +26,21 @@
 //
 // Design:
 //   * One block per tile, one thread per ray (blockDim = R rounded up to a
-//     warp; the extra lanes carry no ray).  bar_T, the ray's rows and the
-//     ray-cotangent sums stay in registers.
+//     warp; the extra lanes carry no ray).  bar_T, the ray's 8 geometry
+//     rows and the ray-cotangent sums stay in registers; its 16 SH basis
+//     values are read from the tile's basis rows in shared memory (below),
+//     by the radiance as by the column product.
+//   * Registers: __launch_bounds__(kMaxThreads = 512) caps every instance
+//     at 65,536 / 512 = 128.  A higher cap buys nothing at R = 256: two
+//     blocks share an SM (shared memory below), 2 x 256 threads x 128 is
+//     the register file, and one block per SM cost 3 ms (PERF.md).
+//     So the live set is kept under 128: the basis in shared memory (16
+//     registers); with ray gradients (RAYG) the product's geometry
+//     features read at their use (8), and a compiler barrier before the
+//     ray-cotangent sums, so that the gaussian's SH rows and frame are
+//     loaded again there and not kept across the backward chain from
+//     eval_pair and sh_radiance (57 values: ptxas spilled 408-444 B per
+//     RAYG instance without it, 24-48 B with it; PERF.md).
 //   * Per chunk, two passes over its G gaussians, with the chunk staged in
 //     shared memory as in K1.  Pass 1 recomputes the forward transmittance
 //     front to back from T_in and stores each accepted pair's exclusive
@@ -45,13 +58,13 @@
 //     column is a per-pair coefficient times a per-ray feature, summed over
 //     rays, col[(a, f)] = sum_r A[a, r] F[r, f] with A = bar_pre (3),
 //     bar_gro (3), bar_grdu (3), bar_ae * resp and F = 16 SH basis values,
-//     o, d, 1.  The basis rows are staged in shared memory once per tile;
-//     per gaussian each lane writes its 10 coefficients (zero where its ray
-//     did not composite it) into its warp's staging rows, 8 lanes at a
-//     time, which turns "one lane per ray" into mma fragments with
-//     __syncwarp only, and the warp contracts its 32 rays in four k-steps of
-//     `mma.sync.m16n8k8.f32.tf32.tf32.f32`: basis x bar_pre, and
-//     [o d 1] x [bar_gro bar_ae bar_grdu] (column_sums).  One TF32 pass
+//     o, d, 1.  The basis rows are staged in shared memory from `rays`
+//     once per tile; per gaussian each lane writes its 10 coefficients
+//     (zero where its ray did not composite it) into its warp's staging
+//     rows, 8 lanes at a time, which turns "one lane per ray" into mma
+//     fragments with __syncwarp only, and the warp contracts its 32 rays in
+//     four k-steps of `mma.sync.m16n8k8.f32.tf32.tf32.f32`: basis x bar_pre,
+//     and [o d 1] x [bar_gro bar_ae bar_grdu] (column_sums).  One TF32 pass
 //     keeps ~3 digits, so every operand is split into TF32 hi + lo and the
 //     product is a_lo b_hi + a_hi b_lo + a_hi b_hi (3xTF32, ~f32 accuracy),
 //     accumulated in f32.  A warp none of whose rays composited the
@@ -59,9 +72,16 @@
 //     memory for a batch of kBatch gaussians, are summed in warp order.  The
 //     mma order is fixed and there are no float atomics: two runs give the
 //     same bits.
-//   * Shared memory, 112.5 KB at R = 256, G = 64 (two blocks per SM): chunk
-//     16 KB, exclusive state 64 KB, basis rows 16 KB, coefficient staging
-//     2.5 KB, warp partials 14 KB.  Every block barrier costs (H100,
+//   * Ray cotangents (RAYG): each lane sums its own ray's, in f32 FMAs in
+//     registers over the tile's pairs in the reverse walk's order: o and d
+//     (the frame rows times the local-frame cotangents bar_gro, bar_grdu)
+//     and the 16 basis rows (the SH rows times bar_pre).  A 3xTF32
+//     mma.sync form of the basis sums, from the staged bar_pre rows, ran
+//     0.16 ms slower at the bench frame (PERF.md) and is not used.
+//   * Shared memory, 115,200 B (112.5 KB) at R = 256, G = 64, the same with
+//     and without ray gradients (two blocks per SM): chunk 16 KB, exclusive
+//     state 64 KB, basis rows 16 KB, coefficient staging 2.5 KB, warp
+//     partials 14 KB.  Every block barrier costs (H100,
 //     PERF.md: 3 gaussians per barrier pair 8.3 ms, 7 gaussians 7.9 ms, one
 //     block per SM 11.4 ms), so the coefficients are staged 8 rays per round
 //     (kStageRays) to leave room for kBatch = 7.  Staged rows are
@@ -80,7 +100,8 @@
 // Numerics: IEEE division, expf/log1pf (no --use_fast_math); the gate chain
 // without FMA contraction; the backward chain itself with FMAs; the column
 // sums in 3xTF32 (per-column relative L2 ~1e-7 against the f32 plain
-// version on the H100).
+// version on the H100); the ray cotangents in f32 FMAs (per-row relative
+// L2 <= 4.6e-7).
 
 #include <cstdint>
 
@@ -111,6 +132,24 @@ constexpr int kFeat = 16;
 __device__ __forceinline__ int swz(int row) { return (row & 7) << 2; }
 __device__ __forceinline__ int stage_swz(int row) {
   return ((row / (32 / kStageRays)) & (kStageRays / 4 - 1)) << 2;
+}
+
+// Basis value j of ray r from the tile's staged basis rows (row stride
+// nthr, swizzled as the product reads them): sh_radiance's basis in K2
+struct StagedBasis {
+  const float* fs;
+  int nthr, r;
+  __device__ __forceinline__ float operator[](int j) const {
+    return fs[j * nthr + (r ^ swz(j))];
+  }
+};
+
+// Geometry feature m of the product ([o0 o1 o2 d0 d1 d2 1 0]) of the
+// warp's ray k: `gf` is row min(m, 5) of the tile's rays at the warp's
+// first ray, `nq` the number of the warp's rays that exist
+__device__ __forceinline__ float geo_feature(const float* gf, int m, int k,
+                                             int nq) {
+  return k >= nq ? 0.0f : m < 6 ? gf[k] : m == 6 ? 1.0f : 0.0f;
 }
 
 // cvt.rna.tf32.f32 in integer arithmetic (add half of the 13 dropped bits,
@@ -161,18 +200,22 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4], float a0, float a1,
 // kCoefs x kStageRays staging rows (filled by kStageRays lanes per round,
 // at least 64 floats), `fw` the warp's first ray slot of the staged
 // basis rows (row stride nthr), `ga` this lane's geometry-feature
-// fragments.  With gid = lane / 4 and tig = lane % 4 (the mma fragment
-// coordinates), per k-step s of 8 rays:
+// fragments or, with RAYG, `gf` and `nq` of geo_feature to read them at
+// their use (8 registers fewer over the tile walk).  With gid = lane / 4
+// and tig = lane % 4 (the mma fragment coordinates), per k-step s of 8
+// rays:
 //   C_sh  (16 x 8) += Basis (16 x 8 rays) x [bp0 bp1 bp2 0 ...] (8 rays x 8)
 //   C_geo (16 x 8) += [o0 o1 o2 d0 d1 d2 1 0; 0] x
 //                     [bgo0 bgo1 bgo2 bae bgu0 bgu1 bgu2 0]
 // so SH column 16 + 16c + j is C_sh[j][c], M[3i + j] is
 // C_geo[j][i] + C_geo[3 + j][4 + i], b[i] is -C_geo[6][i] and the density
 // column C_geo[6][3].
+template <bool RAYG>
 __device__ __forceinline__ void column_sums(const float (&cf)[kCoefs],
                                             float* st, const float* fw,
                                             int nthr,
                                             const float (&ga)[4][2],
+                                            const float* gf, int nq,
                                             float* pw, int lane) {
   const int gid = lane >> 2, tig = lane & 3;
   float csh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -205,7 +248,9 @@ __device__ __forceinline__ void column_sums(const float (&cf)[kCoefs],
           gid < 7 ? st[rg * kStageRays + (l1 ^ stage_swz(rg))] : 0.0f;
       mma_3xtf32(csh, lo_row[f0], hi_row[f0], lo_row[f1], hi_row[f1], bsh0,
                  bsh1);
-      mma_3xtf32(cgeo, ga[s][0], 0.0f, ga[s][1], 0.0f, bgeo0, bgeo1);
+      const float ga0 = RAYG ? geo_feature(gf, gid, k0, nq) : ga[s][0];
+      const float ga1 = RAYG ? geo_feature(gf, gid, k1, nq) : ga[s][1];
+      mma_3xtf32(cgeo, ga0, 0.0f, ga1, 0.0f, bgeo0, bgeo1);
     }
     __syncwarp();  // every lane has read this round's B fragments
   }
@@ -282,11 +327,12 @@ tile_backward_kernel(const float* __restrict__ chunks,
   const int warp = r >> 5;
   const int nwarps = blockDim.x >> 5;
 
-  Ray ray = {};
+  const float* blk = rays + static_cast<size_t>(tile) * kRayRows * R;
+  RayGeom ray = {};
   float bar_T = 0.0f, bar_r = 0.0f, bar_g = 0.0f, bar_b = 0.0f,
         bar_dep = 0.0f;
   if (valid) {
-    load_ray(rays + static_cast<size_t>(tile) * kRayRows * R, R, r, ray);
+    load_ray_geometry(blk, R, r, ray);
     const float* ba = bar_acc + static_cast<size_t>(tile) * kAccRows * R + r;
     bar_r = ba[0];
     bar_g = ba[R];
@@ -294,25 +340,23 @@ tile_backward_kernel(const float* __restrict__ chunks,
     bar_dep = ba[3 * R];
     bar_T = ba[kAccT * R];
   }
-  // the product's ray features: the basis rows staged once per tile (read
-  // after the first chunk's barrier), and the geometry features
-  // [o0 o1 o2 d0 d1 d2 1 0] (row lane / 4) of this lane's fragment rays
+  // the product's ray features: the basis rows staged once per tile from
+  // `rays` (read after the first chunk's barrier; also the radiance's
+  // basis), and the geometry features [o0 o1 o2 d0 d1 d2 1 0] (row
+  // lane / 4) of this lane's fragment rays, in registers without RAYG
 #pragma unroll
-  for (int j = 0; j < kFeat; ++j) fs[j * nthr + (r ^ swz(j))] = ray.basis[j];
+  for (int j = 0; j < kFeat; ++j)
+    fs[j * nthr + (r ^ swz(j))] = valid ? blk[(8 + j) * R + r] : 0.0f;
+  const StagedBasis basis{fs, nthr, r};
+  const float* gf = blk + min(lane >> 2, 5) * R + warp * 32;
+  const int nq = R - warp * 32;
   float ga[4][2];
-  {
-    const int m = lane >> 2;
-    const float* blk = rays + static_cast<size_t>(tile) * kRayRows * R;
+  if (!RAYG) {
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int q = warp * 32 + 8 * s + (lane & 3) + 4 * h;
-        ga[s][h] = q >= R ? 0.0f
-                   : m < 6 ? blk[m * R + q]
-                   : m == 6 ? 1.0f
-                            : 0.0f;
-      }
+      for (int h = 0; h < 2; ++h)
+        ga[s][h] = geo_feature(gf, lane >> 2, 8 * s + (lane & 3) + 4 * h, nq);
     }
   }
   float bo[3] = {0.0f, 0.0f, 0.0f}, bd[3] = {0.0f, 0.0f, 0.0f};
@@ -393,7 +437,7 @@ tile_backward_kernel(const float* __restrict__ chunks,
             const float alpha = e.alpha;
             const float w = alpha * t_before;
             float rr, rg, rb;
-            sh_radiance(p, ray, rr, rg, rb);
+            sh_radiance(p, basis, rr, rg, rb);
             const float bar_w = bar_dep * e.t + bar_r * fmaxf(rr, 0.0f) +
                                 bar_g * fmaxf(rg, 0.0f) +
                                 bar_b * fmaxf(rb, 0.0f);
@@ -447,6 +491,10 @@ tile_backward_kernel(const float* __restrict__ chunks,
             cf[kCoefBgu + 1] = bgu1;
             cf[kCoefBgu + 2] = bgu2;
             if (RAYG) {
+              // a compiler barrier: the gaussian's rows are read again here
+              // (vectorized), not kept in registers across the chain from
+              // eval_pair and sh_radiance (48 + 9 values)
+              asm volatile("" ::: "memory");
 #pragma unroll
               for (int j = 0; j < 3; ++j) {
                 bo[j] += p[j] * bgo0 + p[3 + j] * bgo1 + p[6 + j] * bgo2;
@@ -465,8 +513,8 @@ tile_backward_kernel(const float* __restrict__ chunks,
           pw[lane] = 0.0f;
           pw[lane + 32] = 0.0f;
         } else {
-          column_sums(cf, stage + warp * kCoefs * kStageRays, fs + warp * 32,
-                      nthr, ga, pw, lane);
+          column_sums<RAYG>(cf, stage + warp * kCoefs * kStageRays,
+                            fs + warp * 32, nthr, ga, gf, nq, pw, lane);
         }
       }
       __syncthreads();

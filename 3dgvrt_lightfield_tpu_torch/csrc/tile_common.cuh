@@ -73,15 +73,21 @@ struct Gates {
   float max_alpha, alpha_min, hit_min_response, min_t;
 };
 
-// One ray's 8 geometry rows and 16 SH basis rows, kept in registers.
-struct Ray {
+// One ray's 8 geometry rows, the gate chain's operands, kept in registers.
+struct RayGeom {
   float o0, o1, o2, d0, d1, d2, tmin, tmax;
+};
+
+// ... and its 16 SH basis rows in registers too (K1; K2 reads the basis
+// from its staged rows in shared memory).
+struct Ray : RayGeom {
   float basis[16];
 };
 
-// rays (num_tiles, 24, R): ray r of the tile block starting at `blk`
-__device__ __forceinline__ void load_ray(const float* blk, int R, int r,
-                                         Ray& ray) {
+// rays (num_tiles, 24, R): the geometry rows of ray r of the tile block
+// starting at `blk`
+__device__ __forceinline__ void load_ray_geometry(const float* blk, int R,
+                                                  int r, RayGeom& ray) {
   const float* p = blk + r;
   ray.o0 = p[0];
   ray.o1 = p[R];
@@ -91,8 +97,14 @@ __device__ __forceinline__ void load_ray(const float* blk, int R, int r,
   ray.d2 = p[5 * R];
   ray.tmin = p[6 * R];
   ray.tmax = p[7 * R];
+}
+
+// ... and its basis rows
+__device__ __forceinline__ void load_ray(const float* blk, int R, int r,
+                                         Ray& ray) {
+  load_ray_geometry(blk, R, r, ray);
 #pragma unroll
-  for (int j = 0; j < 16; ++j) ray.basis[j] = p[(8 + j) * R];
+  for (int j = 0; j < 16; ++j) ray.basis[j] = blk[r + (8 + j) * R];
 }
 
 // The forward gate chain of one (gaussian, ray) pair; `p` is the
@@ -123,8 +135,8 @@ __device__ __forceinline__ void pair_origin(const float* p, float o0, float o1,
 }
 
 // expects e.gro0..2
-__device__ __forceinline__ void pair_prefix(const float* p, const Ray& ray,
-                                            Pair& e) {
+__device__ __forceinline__ void pair_prefix(const float* p,
+                                            const RayGeom& ray, Pair& e) {
   e.gu0 = dot3(p[0], p[1], p[2], ray.d0, ray.d1, ray.d2);
   e.gu1 = dot3(p[3], p[4], p[5], ray.d0, ray.d1, ray.d2);
   e.gu2 = dot3(p[6], p[7], p[8], ray.d0, ray.d1, ray.d2);
@@ -137,8 +149,9 @@ __device__ __forceinline__ void pair_prefix(const float* p, const Ray& ray,
 
 // expects the fields of pair_origin and pair_prefix
 template <int DEG>
-__device__ __forceinline__ void pair_tail(const float* p, const Ray& ray,
-                                          const Gates& q, Pair& e) {
+__device__ __forceinline__ void pair_tail(const float* p,
+                                          const RayGeom& ray, const Gates& q,
+                                          Pair& e) {
   e.inv_n2 = 1.0f / fmaxf(e.nrm2, 1e-20f);
   e.gray = mul(e.cc, e.inv_n2);
   e.resp = particle_response<DEG>(e.gray);
@@ -151,7 +164,8 @@ __device__ __forceinline__ void pair_tail(const float* p, const Ray& ray,
 }
 
 template <int DEG>
-__device__ __forceinline__ Pair eval_pair(const float* p, const Ray& ray,
+__device__ __forceinline__ Pair eval_pair(const float* p,
+                                          const RayGeom& ray,
                                           const Gates& q) {
   Pair e;
   pair_origin(p, ray.o0, ray.o1, ray.o2, e.gro0, e.gro1, e.gro2);
@@ -160,18 +174,23 @@ __device__ __forceinline__ Pair eval_pair(const float* p, const Ray& ray,
   return e;
 }
 
-// SH radiance before the clamp, rad_c = C_c . basis + 0.5, per channel
-__device__ __forceinline__ void sh_radiance(const float* p, const Ray& ray,
-                                            float& rr, float& rg, float& rb) {
+// SH radiance before the clamp, rad_c = C_c . basis + 0.5, per channel;
+// basis[j] is the ray's j-th basis value (K1: Ray::basis in registers, K2:
+// its staged row in shared memory), the same op order either way
+template <class Basis>
+__device__ __forceinline__ void sh_radiance(const float* p,
+                                            const Basis& basis, float& rr,
+                                            float& rg, float& rb) {
   const float* sh = p + kColSh;
   rr = 0.5f;
   rg = 0.5f;
   rb = 0.5f;
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
-    rr += sh[j] * ray.basis[j];
-    rg += sh[16 + j] * ray.basis[j];
-    rb += sh[32 + j] * ray.basis[j];
+    const float b = basis[j];
+    rr += sh[j] * b;
+    rg += sh[16 + j] * b;
+    rb += sh[32 + j] * b;
   }
 }
 

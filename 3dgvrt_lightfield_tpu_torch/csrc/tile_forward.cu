@@ -220,7 +220,7 @@ tile_forward_kernel(const float* __restrict__ chunks,
             if (PROD) P = P * (1.0f - e.alpha);
 
             float rr, rg, rb;
-            sh_radiance(p, ray, rr, rg, rb);
+            sh_radiance(p, ray.basis, rr, rg, rb);
             cr += w * fmaxf(rr, 0.0f);
             cg += w * fmaxf(rg, 0.0f);
             cb += w * fmaxf(rb, 0.0f);

@@ -171,7 +171,8 @@ OPS_PER_HIT = 96 + 6 + 2 + 2 + 10
 OPS_PER_HIT_BWD = 99 + 10 + 6 + 14 + 9 + 17 + 42 + 30 + 48 + 61
 #: K2's ray cotangents per composited pair, counted from
 #: csrc/tile_backward.cu (RAYG): the origin and direction rows, 2 x 3 x 3
-#: FMAs, and the 16 basis rows, 16 x 3 FMAs (FMA = 2)
+#: multiply-adds, and the 16 basis rows, 16 x 3 (a multiply-add = 2),
+#: counted as operations whatever unit runs them
 OPS_PER_HIT_RAYG = 2 * (2 * 3 * 3 + 16 * 3)
 #: pose refinement of the full-width frame: Adam steps, lr, translation
 #: sigma of the perturbation
@@ -533,6 +534,26 @@ def column_rel_l2(got, want):
                                            norm.tolist()) if n > 0}
 
 
+#: rows of a (T, 24, R) ray block: origin, direction, the two gate rows
+#: (tmin, tmax: K2's cotangents there are zero) and the 16 SH basis rows
+RAY_ROWS = (["o0", "o1", "o2", "d0", "d1", "d2", "tmin", "tmax"]
+            + [f"basis{j}" for j in range(16)])
+#: K2's ray cotangents against the plain version, per row: relative L2
+RAY_ROW_LIMIT = 1e-4
+
+
+def ray_row_rel_l2(got, want):
+    """{row: relative L2} of each of the 22 cotangent rows of (T, 24, R) ray
+    blocks whose plain norm is nonzero (the gate rows 6-7 are checked to be
+    exactly zero instead)."""
+    g = got.transpose(0, 1).reshape(len(RAY_ROWS), -1)
+    w = want.transpose(0, 1).reshape(len(RAY_ROWS), -1)
+    norm = w.norm(dim=1)
+    rel = (g - w).norm(dim=1) / norm.clamp_min(1e-30)
+    return {RAY_ROWS[i]: float(rel[i]) for i in range(len(RAY_ROWS))
+            if i not in (6, 7) and float(norm[i]) > 0}
+
+
 def poison_allocator(torch, nbytes, device):
     """Fill a block of the caching allocator with NaN and free it: a kernel
     output taken from torch.empty that the kernel does not fully write
@@ -566,8 +587,10 @@ def run_mask(torch, tile_counts, num_chunks, g):
 
 def check_training_kernels(torch, binned, rays, cfg, label, seed):
     """K1's residual variant and K2 against their plain versions on one
-    binned scene, each after a NaN-poisoned allocator.  Returns the
-    largest absolute errors of T_in and of K2's outputs."""
+    binned scene, each after a NaN-poisoned allocator.  With ray gradients
+    also the ray cotangents row by row (check_ray_rows).  Returns the
+    largest absolute errors of T_in and of K2's outputs, and the largest
+    per-row relative L2 of the ray cotangents (None without)."""
     from gvrt_tpu_torch.render import pallas_forward as pf
     from gvrt_tpu_torch.render import pallas_vjp as pv
     chunks, counts = binned.chunks, binned.tile_counts
@@ -586,6 +609,11 @@ def check_training_kernels(torch, binned, rays, cfg, label, seed):
     again = pv.tile_backward(chunks, rays, counts, t_in, bar_acc, cfg)
     # the plain backward of the same forward (the kernel's own T_in)
     want = pv._backward_plain(chunks, rays, counts, t_in, bar_acc, cfg)
+    rows_max = None
+    if cfg.ray_gradients:
+        without = pv.tile_backward(chunks, rays, counts, t_in, bar_acc,
+                                   cfg.replace(ray_gradients=False))[0]
+        rows_max = check_ray_rows(torch, got, again, want, without, label)
     torch.cuda.synchronize()
     errs = {name: {"rel_l2": rel_l2(got[0][..., cols], want[0][..., cols]),
                    "max_abs": float((got[0][..., cols]
@@ -621,7 +649,29 @@ def check_training_kernels(torch, binned, rays, cfg, label, seed):
     if not (zero_ok and finite and same_bits):
         fail(f"K2 on {label}: zero blocks {zero_ok}, finite {finite}, "
              f"bit-identical {same_bits}")
-    return float(d_tin.max()), k2_abs
+    return float(d_tin.max()), k2_abs, rows_max
+
+
+def check_ray_rows(torch, got, again, want, without, label):
+    """K2's ray cotangents against the plain version row by row: `got`,
+    `again` and `want` are (bar_chunks, bar_rays) of two kernel runs and the
+    plain version, `without` the kernel's bar_chunks without ray gradients
+    on the same inputs.  Each of the 22 nonzero rows within RAY_ROW_LIMIT
+    relative L2, the gate rows exactly zero, two runs bit-identical,
+    bar_chunks bit-equal to `without`.  Returns the largest row error."""
+    rows = ray_row_rel_l2(got[1], want[1])
+    res = {"rows_checked": len(rows),
+           "rows_rel_l2_max": max(rows.values(), default=0.0),
+           "gate_rows_zero": not bool(got[1][:, 6:8].any()),
+           "rays_bit_identical_runs": torch.equal(got[1], again[1]),
+           "chunks_bit_identical_to_without": torch.equal(got[0], without)}
+    print(json.dumps({"phase": "ray_cotangent_rows", "scene": label,
+                      **res, "rows_rel_l2": rows}), flush=True)
+    if len(rows) != 22 or res["rows_rel_l2_max"] > RAY_ROW_LIMIT or not (
+            res["gate_rows_zero"] and res["rays_bit_identical_runs"]
+            and res["chunks_bit_identical_to_without"]):
+        fail(f"K2's ray cotangents on {label}, row by row: {res}")
+    return res["rows_rel_l2_max"]
 
 
 def tile_slice(scene, rays_t, chunk_size):
@@ -930,7 +980,7 @@ def garden_window(gt, torch, dev, bd, binning, pf, sr, rows64_from_model,
     # walks of the window's sub-pixel, low-opacity Gaussians)
     part, part_rays = slice_scene(
         binning.binned_scene(chunks.detach(), topo), rays, base.chunk_size)
-    tin_err, k2_err = check_training_kernels(
+    tin_err, k2_err, _ = check_training_kernels(
         torch, part, part_rays, base, "garden_band0_512_tiles", 15)
     del part, part_rays
     garden_times = garden_kernel_times(torch, pf, chunks.detach(), rays,
@@ -1257,7 +1307,7 @@ def combined_phases(gt, torch, dev, model, cam, full, full_rays, acc, small,
                                    tmax_clip=out_k["mesh_t"].detach())
         clipped_s = int((rays_s[:, 7] < binning.tile_rays(
             cam128, base, dev)[:, 7]).sum())
-    tin_err, k2_err = check_training_kernels(
+    tin_err, k2_err, _ = check_training_kernels(
         torch, binned_s, rays_s, base, "combined_128px_clipped", 18)
     print(json.dumps({"phase": "combined_gradient", "launches": diffed,
                       "rel_l2": rel, "finite": finite,
@@ -1588,11 +1638,13 @@ def main():
     t_all = time.time()
 
     # ---- 2. kernels against plain versions ------------------------------
-    def add_training_errs(errs_pair):
-        tin_errs.append(errs_pair[0])
-        k2_errs.append(errs_pair[1])
+    def add_training_errs(errs):
+        tin_errs.append(errs[0])
+        k2_errs.append(errs[1])
+        if len(errs) > 2 and errs[2] is not None:
+            ray_row_errs.append(errs[2])
 
-    errs, tin_errs, k2_errs = [], [], []
+    errs, tin_errs, k2_errs, ray_row_errs = [], [], [], []
     g = torch.Generator(device=dev).manual_seed(1)
     small = gt.random_gaussians(g, 3000, extent=0.8, device=dev)
     with torch.no_grad():
@@ -1666,11 +1718,13 @@ def main():
     r400 = {"tile_forward": compare_acc(got, want, "t20_R400")}
     if not torch.equal(got, again):
         fail("K1 at R = 400: two runs differ")
-    r400["tile_forward_residual"], r400["tile_backward"] = (
+    r400["tile_forward_residual"], r400["tile_backward"], _ = (
         check_training_kernels(torch, binned, rays, t20, "t20_R400", 16))
-    r400["tile_backward_ray_gradients"] = check_training_kernels(
-        torch, binned, rays, t20.replace(ray_gradients=True),
-        "t20_R400_ray_gradients", 17)[1]
+    _, r400["tile_backward_ray_gradients"], r400_rows = (
+        check_training_kernels(torch, binned, rays,
+                               t20.replace(ray_gradients=True),
+                               "t20_R400_ray_gradients", 17))
+    ray_row_errs.append(r400_rows)
     print(json.dumps({"phase": "r400", "rays_per_tile": rays.shape[2],
                       "tiles": rays.shape[0], "max_abs_err": r400}),
           flush=True)
@@ -2031,11 +2085,18 @@ def main():
             # K2 with the ray cotangents on the same inputs: against its
             # plain version, then A B B A against the instances without
             rg = base.replace(ray_gradients=True)
+            poison_allocator(torch, 4 * (chunks_t.numel()
+                                         + 2 * full_rays.numel()), dev)
             bar_k2r, bar_rays_k = pv.tile_backward(
+                chunks_t, full_rays, topo.tile_counts, t_in, bar, rg)
+            again_r = pv.tile_backward(
                 chunks_t, full_rays, topo.tile_counts, t_in, bar, rg)
             k2r_plain_ms, (bar_pr, bar_rays_p) = event_ms(
                 lambda: pv._backward_plain(chunks_t, full_rays,
                                            topo.tile_counts, t_in, bar, rg))
+            ray_row_errs.append(check_ray_rows(
+                torch, (bar_k2r, bar_rays_k), again_r, (bar_pr, bar_rays_p),
+                bar_k2, "full_width_ray_gradients"))
             k2r = {"rel_l2_rays": rel_l2(bar_rays_k, bar_rays_p),
                    "rel_l2_chunks": rel_l2(bar_k2r, bar_pr),
                    "max_abs_err": max(
@@ -2044,8 +2105,9 @@ def main():
                    "chunks_bit_identical_to_without": torch.equal(bar_k2r,
                                                                   bar_k2),
                    "finite": bool(bar_rays_k.isfinite().all()),
+                   "rows_rel_l2_max": ray_row_errs[-1],
                    "plain_ms": k2r_plain_ms}
-            del bar_k2r, bar_rays_k, bar_pr, bar_rays_p
+            del bar_k2r, bar_rays_k, bar_pr, bar_rays_p, again_r
             ab = {"without": [], "with": []}
             for key in ("without", "with", "with", "without"):
                 cfg_k = rg if key == "with" else base
@@ -2472,7 +2534,9 @@ def main():
                             "tile_backward_max_abs_err"]},
               ray_gradients={
                   "launches": pose_launches["tile_backward"],
-                  "max_abs_err": k2r["max_abs_err"], "ms": k2r["ms"],
+                  "max_abs_err": k2r["max_abs_err"],
+                  "rows_rel_l2_max": max(ray_row_errs),
+                  "ms": k2r["ms"],
                   "ms_without": k2r["ms_without"],
                   "plain_ms": k2r["plain_ms"],
                   "bound_ms": k2r["bound_ms"],

@@ -195,7 +195,7 @@ def sources(args):
     makers = {"300k": torch_k2_ab.frame_300k,
               "garden": torch_k2_ab.frame_garden}
     for frame in filter(None, args.frames.split(",")):
-        inputs = makers[frame](gt, torch, dev)
+        inputs = makers[frame](gt, torch, dev)[:4]
         for variant in variants:
             times = {i: [] for i in range(len(libs))}
             with torch.no_grad():

@@ -19,7 +19,11 @@ kernel tolerances):
     group's L2 would hide a small column mapped to the wrong place) and for
     the ray cotangents (the sums over rays run in another order, on the
     tensor cores in 3xTF32); saturated and dead chunks exactly zero; two
-    runs bit-identical.
+    runs bit-identical.  The ray cotangents also row by row, after a
+    NaN-poisoned allocator: each of the 22 nonzero rows (o, d, the 16 SH
+    basis rows) within relative L2 1e-4 wherever the plain row is nonzero,
+    the two gate rows exactly zero, two runs bit-identical, and bar_chunks
+    bit-equal to K2's without ray gradients on the same inputs.
   * K3: relative L2 error <= 1e-5 (another summation order); bit-identical
     across runs.
   * K4: relative L2 error <= 1e-5; bit-identical across runs; every output
@@ -49,7 +53,8 @@ kernel tolerances):
     `train.pose.pose_loss`: K1's residual, then K2 with ray cotangents)
     against the plain versions at R = 64 and R = 256, after a NaN-poisoned
     allocator, on a frame with empty corner tiles: relative L2 <= 1e-4,
-    finite, nonzero.
+    finite, nonzero; and K2's ray cotangents of that loss row by row as
+    above.
 """
 
 import os
@@ -317,6 +322,31 @@ def _assert_columns_match(got, want):
     return int(live.sum())
 
 
+#: the 22 nonzero rows of a (T, 24, R) ray cotangent: o, d and the 16 SH
+#: basis rows (rows 6-7, tmin and tmax, carry none)
+RAY_ROWS = [i for i in range(24) if i not in (6, 7)]
+
+
+def _assert_ray_rows_match(got, again, want, without):
+    """K2's ray cotangents against the plain version row by row: `got`,
+    `again` and `want` are (bar_chunks, bar_rays) of two kernel runs and the
+    plain version, `without` the kernel's bar_chunks without ray gradients.
+    Returns the number of rows checked (plain norm nonzero)."""
+    assert torch.equal(got[0], without), "bar_chunks with ray gradients"
+    assert torch.equal(got[1], again[1])
+    assert bool(got[1].isfinite().all())
+    assert not bool(got[1][:, 6:8].any())
+    g = got[1].transpose(0, 1)[RAY_ROWS].reshape(len(RAY_ROWS), -1)
+    w = want[1].transpose(0, 1)[RAY_ROWS].reshape(len(RAY_ROWS), -1)
+    norm = w.norm(dim=1)
+    live = norm > 0
+    rel = (g - w).norm(dim=1)[live] / norm[live]
+    assert float(rel.max()) <= 1e-4, {
+        RAY_ROWS[i]: float(e) for i, e in zip(
+            torch.nonzero(live).squeeze(1).tolist(), rel) if e > 1e-4}
+    return int(live.sum())
+
+
 def _bar_acc(scene_rays, seed):
     g = torch.Generator(device=scene_rays.device).manual_seed(seed)
     bar = torch.randn((scene_rays.shape[0], 8, scene_rays.shape[2]),
@@ -375,9 +405,11 @@ def _assert_training_kernels_match_plain(scene, rays, cfg, ray_grads):
                              bar_acc, cfg)
     want = pv._backward_plain(scene.chunks, rays, scene.tile_counts, t_in,
                               bar_acc, cfg)
+    without = pv.tile_backward(scene.chunks, rays, scene.tile_counts, t_in,
+                               bar_acc, cfg.replace(ray_gradients=False))[0]
     torch.cuda.synchronize()
     assert (pf.tile_forward_residual.launches, pv.tile_backward.launches) == (
-        before[0] + 1, before[1] + 2)
+        before[0] + 1, before[1] + 3)
     assert bool(got[0].isfinite().all())
     assert torch.equal(got[0], again[0])
     for group, cols in COL_GROUPS.items():
@@ -389,8 +421,10 @@ def _assert_training_kernels_match_plain(scene, rays, cfg, ray_grads):
     if ray_grads:
         assert torch.equal(got[1], again[1])
         assert _rel_l2(got[1], want[1]) <= 1e-4
+        assert _assert_ray_rows_match(got, again, want, without) == 22
     else:
         assert got[1] is None and want[1] is None
+        assert torch.equal(got[0], without)
 
 
 @pytest.mark.parametrize("case", ["sparse_one_ray_per_warp",
@@ -418,16 +452,20 @@ def test_backward_kernel_columns_under_stress(cuda, case):
     acc, t_in = pf.tile_forward_residual(scene.chunks, rays,
                                          scene.tile_counts, cfg)
     assert float(acc[:, 5].sum()) > 0
+    torch.full((scene.chunks.numel() * 2,), float("nan"), device=cuda)
     got = pv.tile_backward(scene.chunks, rays, scene.tile_counts, t_in,
                            bar_acc, cfg)
     again = pv.tile_backward(scene.chunks, rays, scene.tile_counts, t_in,
                              bar_acc, cfg)
     want = pv._backward_plain(scene.chunks, rays, scene.tile_counts, t_in,
                               bar_acc, cfg)
+    without = pv.tile_backward(scene.chunks, rays, scene.tile_counts, t_in,
+                               bar_acc, cfg.replace(ray_gradients=False))[0]
     torch.cuda.synchronize()
     assert bool(got[0].isfinite().all()) and torch.equal(got[0], again[0])
     assert _assert_columns_match(got[0], want[0]) > 0
     assert _rel_l2(got[1], want[1]) <= 1e-4
+    assert _assert_ray_rows_match(got, again, want, without) == 22
 
 
 def test_backward_kernel_zeroes_saturated_chunks(cuda):
@@ -636,8 +674,9 @@ def test_reduce_kernels_on_synthetic_plans(cuda, name):
         assert all(bool(o.any()) for o in outs.values())
 
 
-@pytest.mark.parametrize("tile", [8, 16], ids=["R64", "R256"])
-def test_pose_gradient_kernels_match_plain(cuda, tile):
+def _pose_binding(cuda, tile):
+    """A 96^2 frame's camera perturbed by sigma_t 0.03, bound against the
+    unperturbed frame's image at tile `tile` (empty corner tiles)."""
     cfg = BASE.replace(tile_size=tile)
     g = torch.Generator(device=cuda).manual_seed(31)
     model = gt.random_gaussians(g, 2000, extent=0.8, device=cuda)
@@ -650,6 +689,12 @@ def test_pose_gradient_kernels_match_plain(cuda, tile):
     bad = gt.train.perturb_cameras([cam], 0.03, seed=1)[0]
     bound = gt.train.pose.bind_pose(model, bad, target, cfg)
     assert int((bound.binned.tile_counts == 0).sum()) > 0
+    return bound
+
+
+@pytest.mark.parametrize("tile", [8, 16], ids=["R64", "R256"])
+def test_pose_gradient_kernels_match_plain(cuda, tile):
+    bound = _pose_binding(cuda, tile)
     grads, before = {}, pv.tile_backward.launches
     for impl in ("cuda", "torch"):
         # the kernels' outputs come from torch.empty: poison what they reuse
@@ -666,6 +711,35 @@ def test_pose_gradient_kernels_match_plain(cuda, tile):
     for got, want in zip(grads["cuda"], grads["torch"]):
         assert bool(got.isfinite().all()) and float(want.abs().max()) > 0
         assert _rel_l2(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("tile", [8, 16], ids=["R64", "R256"])
+def test_pose_ray_cotangent_rows_match_plain(cuda, tile):
+    """K2's ray cotangents of the pose loss, row by row, on the rays of a
+    pose step (moved off the bound pose) and the loss's own cotangent."""
+    bound = _pose_binding(cuda, tile)
+    binned, cfg = bound.binned, bound.cfg
+    rays = gt.train.pose._posed_rays(
+        bound.ndc, bound.camera, cfg,
+        torch.tensor([0.01, -0.005, 0.002], device=cuda),
+        torch.tensor([0.002, 0.001, -0.003], device=cuda)).contiguous()
+    acc, t_in = pf.tile_forward_residual(binned.chunks, rays,
+                                         binned.tile_counts, cfg)
+    leaf = acc.detach().requires_grad_(True)
+    loss = ((pf._background_fix(leaf, binned.tile_counts)[:, 0:3]
+             - bound.target) ** 2).mean()
+    bar_acc = torch.autograd.grad(loss, leaf)[0].contiguous()
+    inputs = (binned.chunks, rays, binned.tile_counts, t_in, bar_acc)
+    torch.full((binned.chunks.numel() * 2,), float("nan"), device=cuda)
+    before = pv.tile_backward.launches
+    got = pv.tile_backward(*inputs, cfg)
+    again = pv.tile_backward(*inputs, cfg)
+    want = pv._backward_plain(*inputs, cfg)
+    without = pv.tile_backward(*inputs, cfg.replace(ray_gradients=False))[0]
+    torch.cuda.synchronize()
+    assert pv.tile_backward.launches == before + 3
+    assert float(want[1].abs().max()) > 0
+    assert _assert_ray_rows_match(got, again, want, without) == 22
 
 
 @pytest.mark.parametrize("tile", [8, 16], ids=["R64", "R256"])
