@@ -194,13 +194,20 @@ __device__ __forceinline__ void sh_radiance(const float* p,
   }
 }
 
-// Stage one chunk's G x 64 block into shared memory with 16-byte loads.
+// Stage rows [g0, g0 + n) of one chunk's G x 64 block into shared memory
+// with 16-byte loads (a piece of the chunk where the whole would not fit).
+__device__ __forceinline__ void stage_rows(float4* dst, const float* chunks,
+                                           int chunk, int G, int g0, int n) {
+  const float4* src = reinterpret_cast<const float4*>(
+      chunks + (static_cast<size_t>(chunk) * G + g0) * kCols);
+  const int n4 = n * (kCols / 4);
+  for (int i = threadIdx.x; i < n4; i += blockDim.x) dst[i] = src[i];
+}
+
+// Stage one chunk's whole G x 64 block.
 __device__ __forceinline__ void stage_chunk(float4* dst, const float* chunks,
                                             int chunk, int G) {
-  const float4* src =
-      reinterpret_cast<const float4*>(chunks + static_cast<size_t>(chunk) * G * kCols);
-  const int n4 = G * (kCols / 4);
-  for (int i = threadIdx.x; i < n4; i += blockDim.x) dst[i] = src[i];
+  stage_rows(dst, chunks, chunk, G, 0, G);
 }
 
 // Chunks [start[T-1] + count[T-1], C) belong to no tile's run (the dead

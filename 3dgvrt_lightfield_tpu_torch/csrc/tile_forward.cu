@@ -18,15 +18,27 @@
 //
 // Design:
 //   * One block per tile, one thread per ray (blockDim = R rounded up to
-//     whole warps, R <= 1024; lanes past R hold no ray).  Chunks are laid
-//     out in tile order, so the wrapper hands each block the start and count
-//     of its tile's contiguous chunk run and the tile's pair count: trailing
-//     dead chunks are never visited, the last chunk stops before its
-//     padding, and no scalar-prefetch map or neighbour compare (TPU
-//     devices) is needed.
+//     whole warps; lanes past R hold no ray).  A tile of more than 1024
+//     rays (tile_size >= 33) is split into equal slabs of at most 1024
+//     rays, one block each (blockIdx.y), all walking the tile's chunk run:
+//     compositing is per ray, so a ray's output does not depend on the
+//     split.  Per slab: the early-out below, the shared-origin test
+//     (against the tile's ray 0) and the slab's own columns of T_in.
+//     Chunks are laid out in tile order, so the wrapper hands each block
+//     the start and count of its tile's contiguous chunk run and the
+//     tile's pair count: trailing dead chunks are never visited, the last
+//     chunk stops before its padding, and no scalar-prefetch map or
+//     neighbour compare (TPU devices) is needed.  Slabs and pieces (below)
+//     are the SPLIT instances, a host-side choice: a tile of up to 1024
+//     rays with chunks of up to 512 gaussians runs the instances without
+//     them, the code of one slab and one piece.
 //   * Each chunk's G x 64 f32 block (16 KB at G = 64, 32 KB at G = 128) is
 //     staged in shared memory with coalesced 16-byte loads; every thread then
-//     reads the same row per pair, a shared-memory broadcast.
+//     reads the same row per pair, a shared-memory broadcast.  Above 48 KB
+//     (G > 180) the block opts in to the card's dynamic shared memory; a
+//     chunk of more than kMaxPiece = 512 gaussians is staged in pieces of
+//     512 rows, with P and the log1p sums running on across the pieces from
+//     the chunk's start, so every gate falls as in the plain version.
 //   * The ray's 24 rows (origin, direction, tmin, tmax, 16 SH basis values)
 //     and its accumulator stay in registers for the whole tile.
 //   * Shared origin: when every ray of the tile starts at ray 0's origin bit
@@ -50,7 +62,7 @@
 //     K2's recompute form.  With transmittance_prod = false the log-space
 //     form (exp of the running log1p sum, folded once per chunk) is used.
 //   * Before each chunk the block takes __syncthreads_or(T > min_T) and stops
-//     when no ray of the tile is alive: the `alive` predicate of the Pallas
+//     when no ray of the slab is alive: the `alive` predicate of the Pallas
 //     kernel.  Per-ray gating already zeroes later contributions, so the
 //     skip changes time only.
 //   * Every tile's block is written, tiles without chunks included (they get
@@ -97,15 +109,22 @@ using namespace gvrt;
 //: chunks (the residual variant only)
 constexpr int kTailBlocks = 32;
 constexpr unsigned kFullWarp = 0xffffffffu;
+//: rays per block: a tile of more rays is split into slabs of at most this
+constexpr int kMaxSlab = 1024;
+//: chunk rows staged at a time: a larger chunk is staged in pieces
+//: (512 x 272 B = 139,264 B of the 232,448 a block may have)
+constexpr int kMaxPiece = 512;
+//: dynamic shared memory a block gets without opting in
+constexpr size_t kDefaultSmem = 48 * 1024;
 
-// gro = M o - b of each of the chunk's G gaussians for the tile's one ray
-// origin: pair_origin's ops on the values stage_chunk copies, read from
+// gro = M o - b of rows [g0, g0 + n) of the chunk for the tile's one ray
+// origin: pair_origin's ops on the values stage_rows copies, read from
 // device memory beside it, so the barrier after the staging covers both
 __device__ __forceinline__ void stage_origins(float4* dst, const float* chunks,
-                                              int chunk, int G,
+                                              int chunk, int G, int g0, int n,
                                               const Ray& ray) {
-  const float* src = chunks + static_cast<size_t>(chunk) * G * kCols;
-  for (int i = threadIdx.x; i < G; i += blockDim.x) {
+  const float* src = chunks + (static_cast<size_t>(chunk) * G + g0) * kCols;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
     float4 v;
     pair_origin(src + i * kCols, ray.o0, ray.o1, ray.o2, v.x, v.y, v.z);
     v.w = 0.0f;
@@ -117,23 +136,31 @@ __device__ __forceinline__ bool same_bits(float a, float b) {
   return __float_as_uint(a) == __float_as_uint(b);
 }
 
-template <int DEG, bool PROD>
-__global__ void __launch_bounds__(1024)
+// One block per tile.  SPLIT: one block per (tile, slab), the slab's rays
+// [blockIdx.y * S, min(R, (blockIdx.y + 1) * S)), and the chunk staged GP
+// rows at a time; without SPLIT (S = R, GP = G: up to 1024 rays and 512
+// gaussians per chunk) the code of one slab and one piece.
+template <int DEG, bool PROD, bool SPLIT>
+__global__ void __launch_bounds__(kMaxSlab)
 tile_forward_kernel(const float* __restrict__ chunks,
                     const float* __restrict__ rays,
                     const int* __restrict__ tile_start,
                     const int* __restrict__ tile_nchunks,
                     const int* __restrict__ tile_counts,
                     float* __restrict__ acc, float* __restrict__ t_in_out,
-                    int num_tiles, int num_chunks, int R, int G, Gates q,
-                    float d_hi) {
+                    int num_tiles, int num_chunks, int R, int G, int S,
+                    int GP, Gates q, float d_hi) {
   extern __shared__ float4 smem4[];
   const float* sm = reinterpret_cast<const float*>(smem4);
-  float4* s_gro = smem4 + G * (kCols / 4);  // (G,) gro of the shared origin
-  // blockDim is R rounded up to whole warps: lanes r >= R hold no ray, stay
-  // dead and write nothing, so every vote takes the full warp
-  const int r = threadIdx.x;
-  const bool real = r < R;
+  // (GP,) gro of the shared origin
+  float4* s_gro = smem4 + (SPLIT ? GP : G) * (kCols / 4);
+  // blockDim is the slab rounded up to whole warps: lanes past the slab
+  // hold no ray, stay dead and write nothing, so every vote takes the full
+  // warp
+  const int slab0 = SPLIT ? static_cast<int>(blockIdx.y) * S : 0;
+  const int r = slab0 + static_cast<int>(threadIdx.x);
+  const bool real = SPLIT ? static_cast<int>(threadIdx.x) < min(S, R - slab0)
+                          : r < R;
   if (static_cast<int>(blockIdx.x) >= num_tiles) {
     // residual variant: dead trailing chunks are in no run; they get the
     // transmittance of a tile no chunk reached, so T_in is defined memory
@@ -149,8 +176,9 @@ tile_forward_kernel(const float* __restrict__ chunks,
 
   const float* blk = rays + static_cast<size_t>(tile) * kRayRows * R;
   Ray ray;
-  load_ray(blk, R, real ? r : 0, ray);
-  // a pinhole frame: every ray of the tile starts at ray 0's origin
+  load_ray(blk, R, real ? r : slab0, ray);
+  // a pinhole frame: every ray of the slab starts at the tile's ray 0's
+  // origin
   const bool shared_origin = __syncthreads_and(
       same_bits(ray.o0, blk[0]) && same_bits(ray.o1, blk[R]) &&
       same_bits(ray.o2, blk[2 * R]));
@@ -163,17 +191,20 @@ tile_forward_kernel(const float* __restrict__ chunks,
 
   int k = 0;
   for (; k < nc; ++k) {
-    // tile early-out; also the barrier before the block reuses the buffer
+    // slab early-out; also the barrier before the block reuses the buffer
     if (!__syncthreads_or(T > q.min_t)) break;
     if (t_in_out && real) t_in_out[static_cast<size_t>(first + k) * R + r] = T;
-    stage_chunk(smem4, chunks, first + k, G);
-    if (shared_origin) stage_origins(s_gro, chunks, first + k, G, ray);
-    __syncthreads();
+    if (!SPLIT) {  // the whole chunk at once
+      stage_chunk(smem4, chunks, first + k, G);
+      if (shared_origin) stage_origins(s_gro, chunks, first + k, G, 0, G, ray);
+      __syncthreads();
+    }
 
     // t_before = t_in * P with P the running exclusive product of
     // (1 - alpha) (PROD) or exp of the running log1p sum (log-space), as
     // in the plain version: both kernels and the plain version form the
-    // same product, so the active gate falls alike
+    // same product, so the active gate falls alike.  P and the sums run
+    // over the whole chunk, across its staged pieces.
     const float t_in = T;
     float P = 1.0f;           // PROD: prod of (1 - alpha) over accepted pairs
     float cs = 0.0f;          // log-space: running log1p sum
@@ -182,54 +213,68 @@ tile_forward_kernel(const float* __restrict__ chunks,
     // the last chunk of a run stops at the tile's count: padding slots
     // (density 0) are never accepted
     const int n_live = min(G, count - k * G);
-    for (int g = 0; g < n_live; ++g) {
-      const float* p = sm + g * kCols;
-      Pair e;
-      if (shared_origin) {
-        const float4 o = s_gro[g];
-        e.gro0 = o.x;
-        e.gro1 = o.y;
-        e.gro2 = o.z;
-      } else {
-        pair_origin(p, ray.o0, ray.o1, ray.o2, e.gro0, e.gro1, e.gro2);
+    for (int g0 = 0; g0 < n_live; g0 += GP) {
+      if (SPLIT) {
+        if (g0 > 0) __syncthreads();  // every warp is done with the last piece
+        const int n_staged = min(GP, G - g0);
+        stage_rows(smem4, chunks, first + k, G, g0, n_staged);
+        if (shared_origin)
+          stage_origins(s_gro, chunks, first + k, G, g0, n_staged, ray);
+        __syncthreads();
+        // a warp whose rays all died in an earlier piece waits for the next
+        if (g0 > 0 && !__any_sync(kFullWarp, ray_alive)) continue;
       }
-      pair_prefix(p, ray, e);
-      // Early reject: cc > D_hi |grdu|^2 puts the gray distance past the
-      // response cutoff (the wrapper's margin covers the roundings), so
-      // the pair fails the response gate.  When no lane of the warp is
-      // alive and below the cutoff, the warp skips the tail; a NaN falls
-      // to the full chain.  Dead lanes stay in the loop and vote too.
-      const bool maybe = ray_alive && !(e.cc > d_hi * fmaxf(e.nrm2, 1e-20f));
-      if (!__any_sync(kFullWarp, maybe)) continue;
-      if (ray_alive) {
-        pair_tail<DEG>(p, ray, q, e);
-        if (e.accept) {  // else alpha_eff = 0: T and the sums are unchanged
-          float t_before;
-          if (PROD) {
-            t_before = t_in * P;
-          } else {
-            const float la = log1pf(-e.alpha);
-            t_before = t_in * expf(cs);
-            cs += la;
-            if (t_before > q.min_t) cs_act += la;
-          }
-          if (!(t_before > q.min_t)) {
-            ray_alive = false;  // T only falls: no later pair counts
-          } else {
-            const float w = e.alpha * t_before;
-            if (PROD) P = P * (1.0f - e.alpha);
+      const int n_piece = SPLIT ? min(GP, n_live - g0) : n_live;
+      for (int g = 0; g < n_piece; ++g) {
+        const float* p = sm + g * kCols;
+        Pair e;
+        if (shared_origin) {
+          const float4 o = s_gro[g];
+          e.gro0 = o.x;
+          e.gro1 = o.y;
+          e.gro2 = o.z;
+        } else {
+          pair_origin(p, ray.o0, ray.o1, ray.o2, e.gro0, e.gro1, e.gro2);
+        }
+        pair_prefix(p, ray, e);
+        // Early reject: cc > D_hi |grdu|^2 puts the gray distance past the
+        // response cutoff (the wrapper's margin covers the roundings), so
+        // the pair fails the response gate.  When no lane of the warp is
+        // alive and below the cutoff, the warp skips the tail; a NaN falls
+        // to the full chain.  Dead lanes stay in the loop and vote too.
+        const bool maybe = ray_alive && !(e.cc > d_hi * fmaxf(e.nrm2, 1e-20f));
+        if (!__any_sync(kFullWarp, maybe)) continue;
+        if (ray_alive) {
+          pair_tail<DEG>(p, ray, q, e);
+          if (e.accept) {  // else alpha_eff = 0: T and the sums are unchanged
+            float t_before;
+            if (PROD) {
+              t_before = t_in * P;
+            } else {
+              const float la = log1pf(-e.alpha);
+              t_before = t_in * expf(cs);
+              cs += la;
+              if (t_before > q.min_t) cs_act += la;
+            }
+            if (!(t_before > q.min_t)) {
+              ray_alive = false;  // T only falls: no later pair counts
+            } else {
+              const float w = e.alpha * t_before;
+              if (PROD) P = P * (1.0f - e.alpha);
 
-            float rr, rg, rb;
-            sh_radiance(p, ray.basis, rr, rg, rb);
-            cr += w * fmaxf(rr, 0.0f);
-            cg += w * fmaxf(rg, 0.0f);
-            cb += w * fmaxf(rb, 0.0f);
-            dep += w * e.t;
-            hits += 1.0f;
+              float rr, rg, rb;
+              sh_radiance(p, ray.basis, rr, rg, rb);
+              cr += w * fmaxf(rr, 0.0f);
+              cg += w * fmaxf(rg, 0.0f);
+              cb += w * fmaxf(rb, 0.0f);
+              dep += w * e.t;
+              hits += 1.0f;
+            }
           }
         }
+        if (!__any_sync(kFullWarp, ray_alive)) break;  // the whole warp is done
       }
-      if (!__any_sync(kFullWarp, ray_alive)) break;  // the whole warp is done
+      if (!SPLIT) break;  // the chunk was one piece
     }
     T = PROD ? t_in * P : t_in * expf(cs_act);
   }
@@ -251,22 +296,41 @@ tile_forward_kernel(const float* __restrict__ chunks,
   out[7 * R] = 0.0f;
 }
 
-template <int DEG>
-void launch(bool prod, dim3 grid, int R, size_t smem, cudaStream_t stream,
+template <int DEG, bool PROD, bool SPLIT>
+int launch3(dim3 grid, int threads, size_t smem, cudaStream_t stream,
             const float* chunks, const float* rays, const int* tile_start,
             const int* tile_nchunks, const int* tile_counts, float* acc,
-            float* t_in, int num_tiles, int num_chunks, int G, Gates q,
-            float d_hi) {
-  const int threads = (R + 31) & ~31;  // whole warps
-  if (prod) {
-    tile_forward_kernel<DEG, true><<<grid, threads, smem, stream>>>(
-        chunks, rays, tile_start, tile_nchunks, tile_counts, acc, t_in,
-        num_tiles, num_chunks, R, G, q, d_hi);
-  } else {
-    tile_forward_kernel<DEG, false><<<grid, threads, smem, stream>>>(
-        chunks, rays, tile_start, tile_nchunks, tile_counts, acc, t_in,
-        num_tiles, num_chunks, R, G, q, d_hi);
+            float* t_in, int num_tiles, int num_chunks, int R, int G, int S,
+            int GP, Gates q, float d_hi) {
+  auto kernel = tile_forward_kernel<DEG, PROD, SPLIT>;
+  if (smem > kDefaultSmem) {  // large chunks: opt in to the card's limit
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  kernel<<<grid, threads, smem, stream>>>(chunks, rays, tile_start,
+                                          tile_nchunks, tile_counts, acc,
+                                          t_in, num_tiles, num_chunks, R, G,
+                                          S, GP, q, d_hi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DEG>
+int launch(bool prod, bool split, dim3 grid, int threads, size_t smem,
+           cudaStream_t stream, const float* chunks, const float* rays,
+           const int* tile_start, const int* tile_nchunks,
+           const int* tile_counts, float* acc, float* t_in, int num_tiles,
+           int num_chunks, int R, int G, int S, int GP, Gates q, float d_hi) {
+#define GVRT_ARGS                                                          \
+  grid, threads, smem, stream, chunks, rays, tile_start, tile_nchunks,    \
+      tile_counts, acc, t_in, num_tiles, num_chunks, R, G, S, GP, q, d_hi
+  if (split)
+    return prod ? launch3<DEG, true, true>(GVRT_ARGS)
+                : launch3<DEG, false, true>(GVRT_ARGS);
+  return prod ? launch3<DEG, true, false>(GVRT_ARGS)
+              : launch3<DEG, false, false>(GVRT_ARGS);
+#undef GVRT_ARGS
 }
 
 }  // namespace
@@ -275,9 +339,10 @@ void launch(bool prod, dim3 grid, int R, size_t smem, cudaStream_t stream,
 // tile_nchunks and tile_counts (num_tiles,) i32 (each tile's chunk run and
 // its un-padded pair count), acc (num_tiles, 8, R) f32; t_in is null
 // (serving) or (C, R) f32, the transmittance at the start of every chunk
-// (training's residual).  All contiguous device memory.  response_cutoff
-// is D_hi, the gray distance past which no pair passes the response gate
-// (+inf: no early reject).  Returns cudaGetLastError() after the launch.
+// (training's residual).  All contiguous device memory; any R >= 1 and
+// G >= 1.  response_cutoff is D_hi, the gray distance past which no pair
+// passes the response gate (+inf: no early reject).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int gvrt_tile_forward(const float* chunks, const float* rays,
                                  const int* tile_start,
                                  const int* tile_nchunks,
@@ -291,24 +356,29 @@ extern "C" int gvrt_tile_forward(const float* chunks, const float* rays,
                                  int transmittance_prod, void* stream) {
   if (num_tiles <= 0) return 0;
   const Gates q{max_alpha, alpha_min, hit_min_response, min_transmittance};
-  // the chunk and the gro of its G gaussians (shared-origin tiles)
-  const size_t smem = static_cast<size_t>(G) * (kCols + 4) * sizeof(float);
+  // slabs of equal size, at most kMaxSlab rays (one slab up to 1024 rays)
+  const int nslab = (R + kMaxSlab - 1) / kMaxSlab;
+  const int S = (R + nslab - 1) / nslab;
+  const int GP = G < kMaxPiece ? G : kMaxPiece;
+  const int threads = (S + 31) & ~31;  // whole warps
+  // a piece of the chunk and the gro of its gaussians (shared-origin tiles)
+  const size_t smem = static_cast<size_t>(GP) * (kCols + 4) * sizeof(float);
   const bool prod = transmittance_prod != 0;
-  const dim3 grid(num_tiles + (t_in ? kTailBlocks : 0));
+  const bool split = nslab > 1 || GP < G;
+  const dim3 grid(num_tiles + (t_in ? kTailBlocks : 0), nslab);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define GVRT_LAUNCH(D)                                                     \
-  launch<D>(prod, grid, R, smem, s, chunks, rays, tile_start, tile_nchunks, \
-            tile_counts, acc, t_in, num_tiles, num_chunks, G, q,             \
-            response_cutoff)
+#define GVRT_LAUNCH(D)                                                      \
+  launch<D>(prod, split, grid, threads, smem, s, chunks, rays, tile_start,  \
+            tile_nchunks, tile_counts, acc, t_in, num_tiles, num_chunks, R, \
+            G, S, GP, q, response_cutoff)
   switch (kernel_degree) {
-    case 8: GVRT_LAUNCH(8); break;
-    case 5: GVRT_LAUNCH(5); break;
-    case 4: GVRT_LAUNCH(4); break;
-    case 3: GVRT_LAUNCH(3); break;
-    case 1: GVRT_LAUNCH(1); break;
-    case 0: GVRT_LAUNCH(0); break;
-    default: GVRT_LAUNCH(-1); break;
+    case 8: return GVRT_LAUNCH(8);
+    case 5: return GVRT_LAUNCH(5);
+    case 4: return GVRT_LAUNCH(4);
+    case 3: return GVRT_LAUNCH(3);
+    case 1: return GVRT_LAUNCH(1);
+    case 0: return GVRT_LAUNCH(0);
+    default: return GVRT_LAUNCH(-1);
   }
 #undef GVRT_LAUNCH
-  return static_cast<int>(cudaGetLastError());
 }

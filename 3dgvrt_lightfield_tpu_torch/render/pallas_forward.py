@@ -33,9 +33,15 @@ from .binning import BinnedScene
 from .tile_math import ACC_T, BACKGROUND, RAY_ROWS, chunk_update, init_acc
 
 IMPLS = ("cuda", "torch")
-#: tiles per step of the plain version: keeps its (B, G, R) temporaries at a
-#: few GB at 1080p
-_TILE_BATCH = 1024
+#: (gaussian, ray) pairs per step of the plain version, 1024 tiles at the
+#: defaults (G = 64, R = 256): keeps its (B, G, R) temporaries at a few GB
+_PAIR_BATCH = 1024 * 64 * 256
+
+
+def tile_batch(g: int, r: int) -> int:
+    """Tiles per step of the plain versions at G gaussians per chunk and R
+    rays per tile."""
+    return max(1, _PAIR_BATCH // (g * r))
 
 
 def resolve_impl(impl: str, device: torch.device) -> str:
@@ -69,7 +75,7 @@ def _background_fix(acc, tile_counts):
 def _composite_plain(chunks, rays, tile_counts, cfg: RenderConfig,
                      residual: bool = False):
     """Plain version of the kernel: the k-th chunk of every live tile at once,
-    in batches of `_TILE_BATCH` tiles; a tile leaves the walk once its run
+    in batches of `tile_batch` tiles; a tile leaves the walk once its run
     ends or no ray of it is above min_transmittance.  With `residual` it
     also returns T_in (C, R): T at the start of every chunk of a run (the
     saturated T after a tile's early-out) and 1 for the dead trailing
@@ -87,7 +93,8 @@ def _composite_plain(chunks, rays, tile_counts, cfg: RenderConfig,
             t_in[start[runs] + k] = acc[runs, ACC_T]
         alive = (count > k) & (acc[:, ACC_T, :].amax(dim=1)
                                > cfg.min_transmittance)
-        for tiles in torch.nonzero(alive).squeeze(1).split(_TILE_BATCH):
+        for tiles in torch.nonzero(alive).squeeze(1).split(
+                tile_batch(cfg.chunk_size, r)):
             acc[tiles] = chunk_update(rays[tiles], chunks[start[tiles] + k],
                                       acc[tiles], cfg)
     acc = _background_fix(acc, tile_counts)
@@ -113,9 +120,8 @@ def _check_kernel_inputs(chunks, rays, tile_counts, cfg: RenderConfig):
     if tile_counts.shape != (num_tiles,):
         raise ValueError(f"tile_counts {tuple(tile_counts.shape)} != "
                          f"({num_tiles},)")
-    if not (1 <= r <= 1024 and 1 <= g <= 128):
-        raise ValueError(f"the kernel takes R <= 1024 rays and G <= 128 "
-                         f"gaussians per chunk, got R={r}, G={g}")
+    if r < 1 or g < 1:
+        raise ValueError(f"bad shapes: R={r} rays, G={g} gaussians per chunk")
     if chunks.data_ptr() % 16:
         raise ValueError("chunks must be 16-byte aligned")
 

@@ -31,12 +31,13 @@ import torch
 
 from .. import _build
 from ..config import RenderConfig
-from .pallas_forward import (_TILE_BATCH, _check_device, _check_kernel_inputs,
-                             _composite_plain, tile_chunk_runs,
+from .pallas_forward import (_check_device, _check_kernel_inputs,
+                             _composite_plain, tile_batch, tile_chunk_runs,
                              tile_forward_residual)
 from .tile_math import ACC_T, chunk_core_bwd
 
-#: the largest dynamic shared memory a block may ask for on an H100
+#: the largest dynamic shared memory a block may ask for on an H100 (K2's
+#: plan stays within it for every R and G: slabs of rays, sub-chunks of rows)
 _MAX_SMEM = 232_448
 
 
@@ -69,7 +70,8 @@ def _backward_plain(chunks, rays, tile_counts, t_in, bar_acc,
         tin_max = torch.where(
             has, t_in[torch.where(has, pos, 0)].amax(dim=1), 0.0)
         alive = has & (tin_max > cfg.min_transmittance)
-        for tiles in torch.nonzero(alive).squeeze(1).split(_TILE_BATCH):
+        for tiles in torch.nonzero(alive).squeeze(1).split(
+                tile_batch(cfg.chunk_size, r)):
             idx = pos[tiles]
             out = chunk_core_bwd(rays[tiles], chunks[idx],
                                  t_in[idx][:, None, :], bar_t[tiles],
@@ -104,8 +106,6 @@ def tile_backward(chunks: torch.Tensor, rays: torch.Tensor,
             raise ValueError(f"{name} must be contiguous f32 {shape} on "
                              f"{chunks.device}, got {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
-    if r > 512:
-        raise ValueError(f"the backward kernel takes R <= 512 rays, got {r}")
     lib = _build.load("tile_backward")
     smem = lib.gvrt_tile_backward_smem(r, g)
     if smem > _MAX_SMEM:

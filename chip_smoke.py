@@ -22,6 +22,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      tile 20, the light field's (R = 400 rays, no multiple of 32), on the
      3000-Gaussian scene at 120^2, after a NaN-poisoned allocator, each
      twice (bit-identical);
+ 2c. the tile and chunk sizes past one block (SHAPES_SMALL: R = 529, 576,
+     1024, 1089, 4096 and G = 128, 256, 512, 1024) on that scene, as in
+     2b; then
+     the full-width frame at (tile, chunk) (16, 64), (32, 64), (16, 256)
+     and (64, 256) (SHAPES_FULL): the serving frame and one training step
+     through TiledRenderer, each with its launches counted (the step's
+     six gradients against the all-plain path), K1 (serving, residual)
+     and K2 (both instances) against their plain versions, timed beside
+     their bounds (chain_counts); one optimize_camera_poses step at (32,
+     64) (K2's ray-gradient instances at R = 1024) with its launches
+     counted, its pose gradient against the plain versions, timed;
   3. the full-width frame (1920x1088, 300k Gaussians, the scene of the
      JAX package's bench.py made from a torch.Generator) through
      TiledRenderer.plan + render under torch.no_grad() (serving: K1 without
@@ -120,7 +131,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      launches are both modes', its table mode's numbers in `table_mode`;
      K1's light-field launches and time, and the R = 400 errors; K1's
      combined-frame launches, error, time and bound, and the launches and
-     errors of K1's residual, K2 and K3 in the differentiated frame);
+     errors of K1's residual, K2 and K3 in the differentiated frame; the
+     2c errors at each shape, and times and bounds at each full-width
+     shape);
  12. the last line: {"ok": true, "device": {...}}.
 
 It needs no network and stops every process it starts.  Without CUDA, or
@@ -177,7 +190,8 @@ OPS_PER_HIT_RAYG = 2 * (2 * 3 * 3 + 16 * 3)
 #: pose refinement of the full-width frame: Adam steps, lr, translation
 #: sigma of the perturbation
 POSE_STEPS, POSE_LR, POSE_SIGMA = 20, 3e-3, 0.02
-#: visited chunks per batch of chain_counts
+#: visited chunks per batch of chain_counts at the defaults (G = 64, R =
+#: 256); fewer at larger G * R
 COUNT_BATCH = 512
 #: the training window of bench.py: K steps per topology refresh, SGD lr
 TRAIN_K, TRAIN_LR, TRAIN_TARGET = 10, 1e-12, 0.3
@@ -185,6 +199,17 @@ TRAIN_K, TRAIN_LR, TRAIN_TARGET = 10, 1e-12, 0.3
 FULL_W, FULL_H, FULL_N = 1920, 1088, 300_000
 #: the light field's tile (models/lightfield.py): R = 400 rays per tile
 LF_TILE = 20
+#: phase 2c: (tile, chunk, image side) past one block of K1 (R > 1024) or
+#: K2 (R > 512, or its one-pass shared memory) on the 3000-Gaussian scene,
+#: the card tests' shapes (tests/test_torch_cuda.py::SHAPES); and (tile,
+#: chunk) of the full-width frame, the default first as the yardstick
+SHAPES_SMALL = [(23, 64, 92), (24, 64, 96), (32, 64, 96), (33, 64, 99),
+                (64, 64, 128), (16, 128, 96), (16, 256, 96), (16, 512, 96),
+                (16, 1024, 96), (32, 256, 96)]
+SHAPES_FULL = [(16, 64), (32, 64), (16, 256), (64, 256)]
+#: phase 2c's pose step: tile 32, G = 64 (K2's ray-gradient instances at
+#: R = 1024)
+POSE_SHAPE = (32, 64)
 #: deadline of the two gloo ranks of phase 8e (they take ~25 s)
 MESH_TIMEOUT_S = 300
 #: the garden-scale window (scripts/config2_scale.py:49-62): Gaussians,
@@ -440,7 +465,8 @@ def chain_counts(binned, rays, cfg):
     n_real = (counts.long()[tile] - k * g).clamp(0, g)
     shared = (rays[:, 0:3] == rays[:, 0:3, :1]).all(2).all(1)
     n = {"origins": 0, "pairs": 0, "inside": 0}
-    for b in torch.arange(len(tile), device=dev).split(COUNT_BATCH):
+    batch = max(1, COUNT_BATCH * 64 * 256 // (g * r))
+    for b in torch.arange(len(tile), device=dev).split(batch):
         p, ry = chunks[cid[b]], rays[tile[b]]
         live = ((torch.arange(g, device=dev) < n_real[b, None])[..., None]
                 & (t_in[cid[b]] > cfg.min_transmittance)[:, None, :])
@@ -1588,6 +1614,215 @@ def native_ply_phase(ply, name, power):
         fail("the native PLY reader disagrees with the NumPy reader")
 
 
+def shapes_phase(gt, torch, dev, small, model, cam, reset_launches,
+                 launches, name, power):
+    """Phase 2c: K1 (serving and residual) and K2 (with and without ray
+    gradients) at the tile and chunk sizes past one block, on the small
+    scene (SHAPES_SMALL) and on the full-width frame (SHAPES_FULL): there
+    also the serving frame and a training step through TiledRenderer, each
+    with its launches counted (the step's gradients against the all-plain
+    path), the kernels timed beside their bounds, and at POSE_SHAPE one
+    optimize_camera_poses step.  Returns {shape: errors} for the kernels
+    line."""
+    import numpy as np
+    from gvrt_tpu_torch.render import pallas_forward as pf
+    from gvrt_tpu_torch.render import pallas_vjp as pv
+    from gvrt_tpu_torch.render.tiled import TiledRenderer
+    from gvrt_tpu_torch.train import pose as tpose
+    base = gt.DEFAULT_CONFIG
+    t_phase = time.time()
+    res = {}
+    for tile, chunk, side in SHAPES_SMALL:
+        cfg = base.replace(tile_size=tile, chunk_size=chunk)
+        label = f"t{tile}_g{chunk}"
+        cam_s = gt.Camera.from_fovy(side, side, 60.0, np.eye(4))
+        binned, rays = binned_for(gt, small, cam_s, cfg)
+        if chunk > 512 and int(binned.tile_counts.max()) <= 512:
+            fail(f"{label}: no tile holds live rows in two of K1's pieces")
+        poison_allocator(torch, 8 * (binned.chunks.numel() + rays.numel()),
+                         dev)
+        with torch.no_grad():
+            got = pf.forward_dispatch(binned, rays, cfg, "cuda")
+            again = pf.forward_dispatch(binned, rays, cfg, "cuda")
+            want = pf.forward_dispatch(binned, rays, cfg, "torch")
+        e = {"rays_per_tile": tile * tile,
+             "tile_forward": compare_acc(got, want, label)}
+        if not torch.equal(got, again):
+            fail(f"K1 at {label}: two runs differ")
+        e["tile_forward_residual"], e["tile_backward_ray_gradients"], _ = (
+            check_training_kernels(torch, binned, rays,
+                                   cfg.replace(ray_gradients=True), label,
+                                   20))
+        _, e["tile_backward"], _ = check_training_kernels(
+            torch, binned, rays, cfg, label, 21)
+        res[label] = e
+    print(json.dumps({"phase": "shapes_small", "max_abs_err": res,
+                      "seconds": time.time() - t_phase}), flush=True)
+
+    targets = {}
+    for tile, chunk in SHAPES_FULL:
+        t0 = time.time()
+        cfg = base.replace(tile_size=tile, chunk_size=chunk)
+        label = f"full_t{tile}_g{chunk}"
+        line = {"phase": "shapes_full_width", "tile": tile, "chunk": chunk,
+                "rays_per_tile": tile * tile}
+        # serving through the entry point
+        r = TiledRenderer(FULL_W, FULL_H, cfg, device=dev)
+        r.plan(model, [cam])
+        reset_launches()
+        with torch.no_grad():
+            out = r.render(model, cam)
+        torch.cuda.synchronize()
+        line["serve_launches"] = serve = launches()
+        if int(out["overflow"]) or not all(
+                bool(out[k].isfinite().all())
+                for k in ("rgb", "depth", "transmittance")):
+            fail(f"{label}: serving frame overflowed or is not finite")
+        if serve["tile_forward"] != 1 or any(
+                serve[k] for k in ("tile_forward_residual", "tile_backward",
+                                   "segment_reduce",
+                                   "segment_reduce_compact")):
+            fail(f"{label}: serving launches {serve}")
+        line["mean_hits_per_ray"] = float(out["hit_count"].mean())
+        targets[(tile, chunk)] = out["rgb"]
+        with torch.no_grad():
+            line["render_ms"] = cuda_ms(lambda: r.render(model, cam))
+        # a training step through the entry point: gather, K1's residual,
+        # K2, K3 and the parameter-layer VJP, against the all-plain path
+        r.bind(model, cam)
+
+        def step(impl):
+            rr = TiledRenderer(FULL_W, FULL_H, cfg, capacity=r.capacity,
+                               impl=impl, device=dev)
+            rr._bound = r._bound
+            model.zero_grad(set_to_none=True)
+            loss = ((rr.render_bound(model)["rgb"] - TRAIN_TARGET) ** 2).mean()
+            loss.backward()
+            return {k: getattr(model, k).grad.clone()
+                    for k in gt.models.gaussians.LEAVES}
+
+        reset_launches()
+        g_k = step("cuda")
+        torch.cuda.synchronize()
+        line["train_launches"] = train = launches()
+        if any(train[k] != 1 for k in ("tile_forward_residual",
+                                       "tile_backward", "segment_reduce")) \
+                or train["tile_forward"] or train["segment_reduce_compact"]:
+            fail(f"{label}: training step launches {train}")
+        line["step_ms"] = cuda_ms(lambda: step("cuda"), n=5)
+        g_p = step("torch")
+        line["grad_rel_l2"] = rel = {k: rel_l2(g_k[k], g_p[k]) for k in g_p}
+        if max(rel.values()) > 1e-4 or not all(
+                bool(g_k[k].isfinite().all()) and float(g_p[k].abs().max()) > 0
+                for k in g_p):
+            fail(f"{label}: training step gradients against the all-plain "
+                 f"path: {rel}")
+        model.zero_grad(set_to_none=True)
+        del g_k, g_p, r, out
+        # the kernels alone at the frame's shapes, beside their bounds
+        binned, rays = binned_for(gt, model, cam, cfg)
+        with torch.no_grad():
+            k = {"tile_forward_ms": cuda_ms(lambda: pf.tile_forward(
+                binned.chunks, rays, binned.tile_counts, cfg))}
+            acc = pf.tile_forward(binned.chunks, rays, binned.tile_counts, cfg)
+            k["tile_forward_plain_ms"], plain = event_ms(
+                lambda: pf.forward_tiles_reference(binned, rays, cfg))
+            e = {"tile_forward": compare_acc(acc, plain, label)}
+            del plain
+            k["tile_forward_residual_ms"] = cuda_ms(
+                lambda: pf.tile_forward_residual(binned.chunks, rays,
+                                                 binned.tile_counts, cfg))
+            acc_t, t_in = pf.tile_forward_residual(binned.chunks, rays,
+                                                   binned.tile_counts, cfg)
+            bar = bar_acc_for(torch, rays, 22)
+            for key, c in (("tile_backward_ms", cfg),
+                           ("tile_backward_ray_gradients_ms",
+                            cfg.replace(ray_gradients=True))):
+                k[key] = cuda_ms(lambda: pv.tile_backward(
+                    binned.chunks, rays, binned.tile_counts, t_in, bar, c))
+            del acc_t, t_in, bar
+            e["tile_forward_residual"], e["tile_backward_ray_gradients"], \
+                e["rows_rel_l2_max"] = check_training_kernels(
+                    torch, binned, rays, cfg.replace(ray_gradients=True),
+                    label, 23)
+            # check_ray_rows held the instances without ray gradients to
+            # the same bar_chunks bit for bit
+            e["tile_backward"] = e["tile_backward_ray_gradients"]
+            n = chain_counts(binned, rays, cfg)
+            t_in_bytes = binned.chunks.shape[0] * rays.shape[2] * 4
+            for key, b in (
+                    ("tile_forward", bound_ms(binned, rays, acc, cfg, n)),
+                    ("tile_forward_residual", bound_ms(
+                        binned, rays, acc, cfg, n, extra_bytes=t_in_bytes)),
+                    ("tile_backward", bound_bwd_ms(binned, rays, acc, cfg,
+                                                   n)),
+                    ("tile_backward_ray_gradients", bound_bwd_ms(
+                        binned, rays, acc, cfg, n, ray_grads=True))):
+                k[key + "_bound_ms"], k[key + "_bound_by"] = b[0], b[1]
+        line.update({"chunks": int(binned.chunks.shape[0]),
+                     "tiles": int(rays.shape[0]), "chain_counts": n,
+                     "kernels": k, "max_abs_err": e})
+        del binned, rays, acc
+        torch.cuda.empty_cache()
+        line.update({"card": name, "power_limit": power,
+                     "seconds": time.time() - t0})
+        print(json.dumps(line), flush=True)
+        res[label] = {**e, **k}
+
+    # one pose step at POSE_SHAPE: K1 once for loss0, K1's residual and K2
+    # with ray cotangents (R = 1024) once
+    t0 = time.time()
+    cfg = base.replace(tile_size=POSE_SHAPE[0], chunk_size=POSE_SHAPE[1])
+    target = targets[POSE_SHAPE]
+    bad = gt.train.perturb_cameras([cam], POSE_SIGMA, seed=0)[0]
+    reset_launches()
+    _, reports = gt.train.optimize_camera_poses(
+        model, [bad], [target], cfg, steps=1, lr=POSE_LR, verbose=False)
+    torch.cuda.synchronize()
+    pose_launches = launches()
+    want = {"tile_forward": 1, "tile_forward_residual": 1, "tile_backward": 1,
+            "segment_reduce": 0, "segment_reduce_compact": 0,
+            "segment_reduce_compact_table": 0}
+    if pose_launches != want:
+        fail(f"pose step at {POSE_SHAPE}: launches {pose_launches}, "
+             f"expected {want}")
+    bound = tpose.bind_pose(model, bad, target, cfg)
+
+    def pose_grads(impl):
+        poison_allocator(torch, 8 * bound.binned.chunks.numel(), dev)
+        t = torch.zeros(3, device=dev, requires_grad=True)
+        r = torch.zeros(3, device=dev, requires_grad=True)
+        return [x.detach() for x in torch.autograd.grad(
+            tpose.pose_loss(bound, t, r, impl), (t, r))]
+
+    g_k, g_p = pose_grads("cuda"), pose_grads("torch")
+    rel = {"t": rel_l2(g_k[0], g_p[0]), "r": rel_l2(g_k[1], g_p[1])}
+    if not all(np.isfinite(v) for v in reports[0].values()) or max(
+            rel.values()) > 1e-4 or not all(
+            bool(x.isfinite().all()) and float(x.abs().max()) > 0
+            for x in g_k + g_p):
+        fail(f"pose step at {POSE_SHAPE}: {reports[0]}, gradient {rel}")
+    t_s = torch.zeros(3, device=dev, requires_grad=True)
+    r_s = torch.zeros(3, device=dev, requires_grad=True)
+    opt = torch.optim.Adam([t_s, r_s], lr=POSE_LR, eps=1e-8)
+
+    def pose_step():
+        opt.zero_grad(set_to_none=True)
+        tpose.pose_loss(bound, t_s, r_s, "cuda").backward()
+        opt.step()
+
+    pose = {"shape": list(POSE_SHAPE), **reports[0],
+            "launches": pose_launches, "grad_rel_l2": rel,
+            "pose_step_ms": cuda_ms(pose_step)}
+    print(json.dumps({"phase": "shapes_pose_step", **pose, "card": name,
+                      "power_limit": power, "seconds": time.time() - t0}),
+          flush=True)
+    res["pose_t32_g64"] = pose
+    del bound, opt, targets
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     import numpy as np
     import torch
@@ -1733,6 +1968,10 @@ def main():
                        max(r400["tile_backward"],
                            r400["tile_backward_ray_gradients"])))
     del binned, rays, got, again, want
+
+    # ---- 2c. tile and chunk sizes past one block --------------------------
+    shapes = shapes_phase(gt, torch, dev, small, model, cam, reset_launches,
+                          launches, name, power)
 
     # ---- 3. full width, through the serving entry point ------------------
     renderer = TiledRenderer(FULL_W, FULL_H, base, device=dev)
@@ -2496,6 +2735,17 @@ def main():
                                     "bound_ms_chain72": g_b72_ms}
         return line
 
+    def at_shapes(kname):
+        """Phase 2c's numbers of one kernel: its max abs error at each
+        shape, and its time and bound at each full-width shape."""
+        return {"max_abs_err": {lb: e[kname] for lb, e in shapes.items()
+                                if kname in e},
+                "full_width": {lb: {"ms": e[kname + "_ms"],
+                                    "bound_ms": e[kname + "_bound_ms"],
+                                    "bound_by": e[kname + "_bound_by"]}
+                               for lb, e in shapes.items()
+                               if kname + "_ms" in e}}
+
     # the hot spots with no Pallas counterpart (plain PyTorch), per frame
     comb_grad = comb_res["combined_grad"]
     print(json.dumps({"phase": "hot_spots", "card": name,
@@ -2514,7 +2764,8 @@ def main():
               serve_launches["tile_forward"], max(errs + [full_err]), k_ms,
               plain_ms, k1_bound, None, lightfield=lightfield,
               r400_max_abs_err=r400["tile_forward"],
-              combined=comb_res["combined_k1"]),
+              combined=comb_res["combined_k1"],
+              shapes=at_shapes("tile_forward")),
         entry("tile_forward_residual", "tile_forward.cu", f"{vjp}:74",
               train_launches["tile_forward_residual"],
               max(tin_errs + [res_err]), res_ms, res_plain_ms,
@@ -2522,7 +2773,8 @@ def main():
               r400_max_abs_err=r400["tile_forward_residual"],
               combined={"launches": comb_grad["launches"][
                   "tile_forward_residual"],
-                  "max_abs_err": comb_grad["t_in_max_abs_err"]}),
+                  "max_abs_err": comb_grad["t_in_max_abs_err"]},
+              shapes=at_shapes("tile_forward_residual")),
         # the ray-cotangent instances beside: launches on the pose path
         entry("tile_backward", "tile_backward.cu", f"{vjp}:99",
               train_launches["tile_backward"], max(k2_errs + [k2_err]),
@@ -2532,7 +2784,10 @@ def main():
               combined={"launches": comb_grad["launches"]["tile_backward"],
                         "max_abs_err": comb_grad[
                             "tile_backward_max_abs_err"]},
+              shapes=at_shapes("tile_backward"),
               ray_gradients={
+                  "shapes": at_shapes("tile_backward_ray_gradients"),
+                  "pose_step_at_shape": shapes["pose_t32_g64"],
                   "launches": pose_launches["tile_backward"],
                   "max_abs_err": k2r["max_abs_err"],
                   "rows_rel_l2_max": max(ray_row_errs),

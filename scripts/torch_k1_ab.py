@@ -15,7 +15,8 @@ turn on the same inputs:
   * `300k`: the full-width frame of `chip_smoke.py` (1920x1088, the
     300k-Gaussian bench scene, default config);
   * `garden`: band 0 of `chip_smoke.py`'s garden window (5M Gaussians,
-    y-sorted, 2 span bands at 1920x1088).
+    y-sorted, 2 span bands at 1920x1088);
+  * `300k:T:G`: the 300k frame binned at tile T and chunk size G.
 
 For each frame, variant and each of --rounds rounds the SRCs are timed in
 the order given, then in reverse (A B B A), each a CUDA-event median of --n
@@ -26,7 +27,7 @@ zero in K1, where a counting copy may keep per-ray counts).  Every SRC
 must have the current wrapper's interface of `gvrt_tile_forward`; compare
 sources of an older interface in checkout mode.
 `--sass DIR` also writes `cuobjdump -sass` of each SRC's default instance
-(degree 4, product transmittance) to DIR.
+(degree 4, product transmittance, without SPLIT) to DIR.
 
     python3 scripts/torch_k1_ab.py [--rounds 2] [--n 20] [--frames 300k,garden]
         [--sass DIR] SRC.cu [SRC.cu ...]
@@ -56,7 +57,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: mangled K1 instance: tile_forward_kernel<DEG, PROD>
-_INSTANCE = re.compile(r"tile_forward_kernelILi(n?\d+)ELb(\d)E")
+_INSTANCE = re.compile(r"tile_forward_kernelILi(n?\d+)ELb(\d)E(?:Lb(\d)E)?")
 
 
 def child(root, n):
@@ -118,8 +119,10 @@ def build(src, out_dir):
     report, inst, spill = [], None, ""
     for line in (proc.stdout + proc.stderr).splitlines():
         m = _INSTANCE.search(line)
-        if m:
-            inst = "<{}, {}>".format(m.group(1).replace("n", "-"), m.group(2))
+        if m:  # <DEG, PROD[, SPLIT]>
+            inst = "<{}>".format(", ".join(
+                [m.group(1).replace("n", "-")]
+                + [x for x in m.group(2, 3) if x is not None]))
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line and inst:
@@ -130,7 +133,8 @@ def build(src, out_dir):
 
 
 def sass(path, src, out_dir):
-    """cuobjdump -sass of the <4, true> instance of a built library."""
+    """cuobjdump -sass of the <4, true> instance (without SPLIT where the
+    source has it) of a built library."""
     from gvrt_tpu_torch import _build
     tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     proc = subprocess.run([tool, "-sass", path], capture_output=True,
@@ -138,10 +142,11 @@ def sass(path, src, out_dir):
     text = proc.stdout
     # keep the function whose header names the default instance
     parts = re.split(r"(?=\n\s*Function : )", text)
-    keep = [p for p in parts if "tile_forward_kernelILi4ELb1E" in p]
+    keep = [p for p in parts
+            if re.search(r"tile_forward_kernelILi4ELb1E(?:Lb0E)?EE", p)]
     os.makedirs(out_dir, exist_ok=True)
-    name = os.path.join(out_dir, os.path.basename(os.path.dirname(src))
-                        + "_" + os.path.basename(src) + ".sass")
+    # named after the library, whose name holds the source's hash
+    name = os.path.join(out_dir, os.path.basename(path) + ".sass")
     with open(name, "w") as f:
         f.write(keep[0] if keep else text)
     n_instr = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+[A-Z@]",
@@ -195,7 +200,8 @@ def sources(args):
     makers = {"300k": torch_k2_ab.frame_300k,
               "garden": torch_k2_ab.frame_garden}
     for frame in filter(None, args.frames.split(",")):
-        inputs = makers[frame](gt, torch, dev)[:4]
+        name, *shape = frame.split(":")
+        inputs = makers[name](gt, torch, dev, *map(int, shape))[:4]
         for variant in variants:
             times = {i: [] for i in range(len(libs))}
             with torch.no_grad():

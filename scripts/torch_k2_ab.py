@@ -16,7 +16,10 @@ then launches each library in turn on the same inputs:
     y-sorted, 2 span bands at 1920x1088), with the same kind of cotangent;
   * `pose`: the 300k frame's camera perturbed as `chip_smoke.py` perturbs
     it, bound by `train.pose.bind_pose` against the unperturbed frame's
-    image, its rays at the base pose and the cotangent of `pose_loss`.
+    image, its rays at the base pose and the cotangent of `pose_loss`;
+  * `300k:T:G`: the 300k frame binned at tile T and chunk size G (for
+    example `300k:20:64`, the light field's R = 400, at 1920x1080: the
+    frame is cut to whole tiles).
 
 For each frame and each of --rounds rounds the SRCs are timed in the order
 given, then in reverse (A B B A), each a CUDA-event median of --n launches;
@@ -59,31 +62,46 @@ def build(srcs, out_dir):
     os.makedirs(out_dir, exist_ok=True)
     procs = []
     for src in srcs:
-        with open(src, "rb") as f:
-            key = hashlib.sha256(f.read()).hexdigest()[:12]
-        path = os.path.join(out_dir, f"libk2_{key}.so")
+        path = os.path.join(out_dir, f"libk2_{source_key(src)}.so")
+        if os.path.exists(path + ".log"):  # built by an earlier run
+            procs.append((src, path, None))
+            continue
         procs.append((src, path, subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", path,
              src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     out = []
     for src, path, proc in procs:
-        log = proc.communicate(timeout=900)[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {src}:\n{log}")
-        out.append((path, ptxas_report(log)))
+        if proc is not None:
+            log = proc.communicate(timeout=900)[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc {src}:\n{log}")
+            with open(path + ".log", "w") as f:
+                f.write(log)
+        with open(path + ".log") as f:
+            out.append((path, ptxas_report(f.read())))
     return out
 
 
+def source_key(src):
+    """Hash of a SRC and the shared header beside it."""
+    h = hashlib.sha256()
+    for name in (src, os.path.join(os.path.dirname(src), "tile_common.cuh")):
+        with open(name, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:12]
+
+
 def ptxas_report(log):
-    """One line per template instance <DEG, PROD, RAYG>: registers and
-    spills."""
+    """One line per template instance <DEG, PROD, RAYG[, SPLIT]>: registers
+    and spills."""
     report, inst = [], None
     for line in log.splitlines():
-        m = re.search(r"kernelIL(i?n?\d+)ELb(\d)ELb(\d)E", line)
+        m = re.search(r"kernelIL(i?n?\d+)ELb(\d)ELb(\d)E(?:Lb(\d)E)?", line)
         if m:
-            inst = "<{}, {}, {}>".format(m.group(1).replace("in", "-")
-                                         .lstrip("i"), *m.group(2, 3))
+            inst = "<{}>".format(", ".join(
+                [m.group(1).replace("in", "-").lstrip("i")]
+                + [x for x in m.group(2, 3, 4) if x is not None]))
         elif "spill" in line:
             spill = line.strip()
         elif "Used" in line and inst:
@@ -112,13 +130,17 @@ def loss_cotangent(torch, pf, acc, tile_counts, target):
     return bar
 
 
-def frame_300k(gt, torch, dev):
+def frame_300k(gt, torch, dev, tile=None, chunk=None):
     import numpy as np
     import chip_smoke
     cfg = gt.DEFAULT_CONFIG
+    if tile is not None:
+        cfg = cfg.replace(tile_size=tile, chunk_size=chunk)
     model = chip_smoke.bench_scene(gt, torch, dev)
-    cam = gt.Camera.from_fovy(chip_smoke.FULL_W, chip_smoke.FULL_H, 50.0,
-                              np.eye(4))
+    # whole tiles: 1920x1080 at tile 20
+    ts = cfg.tile_size
+    cam = gt.Camera.from_fovy(chip_smoke.FULL_W // ts * ts,
+                              chip_smoke.FULL_H // ts * ts, 50.0, np.eye(4))
     scene, rays = chip_smoke.binned_for(gt, model, cam, cfg)
     return scene.chunks, rays, scene.tile_counts, cfg, 0.3
 
@@ -196,7 +218,9 @@ def main():
 
     makers = {"300k": frame_300k, "garden": frame_garden, "pose": frame_pose}
     for frame in filter(None, args.frames.split(",")):
-        chunks, rays, counts, cfg, target = makers[frame](gt, torch, dev)
+        name, *shape = frame.split(":")
+        chunks, rays, counts, cfg, target = makers[name](
+            gt, torch, dev, *map(int, shape))
         with torch.no_grad():
             acc, t_in = pf.tile_forward_residual(chunks, rays, counts, cfg)
             bar = loss_cotangent(torch, pf, acc, counts, target)

@@ -39,6 +39,13 @@ def torch_cfg(cfg) -> "gt.RenderConfig":
                               for f in dataclasses.fields(cfg)})
 
 
+def carry_topology(topo) -> "gt.render.binning.BinTopology":
+    """A JAX BinTopology (with its reduce plan) -> the port's, on the CPU."""
+    t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
+    red = gt.render.segreduce.ReducePlan(*(t(x) for x in topo.red))
+    return gt.render.binning.BinTopology(*(t(x) for x in topo[:-1]), red=red)
+
+
 def camera(res=32, fov=60.0, height=None):
     return g3.Camera.from_fovy(res, height or res, fov, np.eye(4))
 

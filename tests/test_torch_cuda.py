@@ -13,7 +13,10 @@ kernel tolerances):
     against a cumprod can flip a borderline `T > min_transmittance` gate on
     a rare pair.  Its residual T_in: within 1e-5 on 99.99% of entries.
     K1 and K2 also at tile 20 (R = 400, the light field's), where the last
-    warp of a block holds 16 rays.
+    warp of a block holds 16 rays, and at the tile and chunk sizes past
+    one block (R = 529, 576, 1024, 1089, 4096; G = 128, 256, 512, 1024),
+    where the kernels split a tile's rays into slabs and a chunk into
+    pieces or sub-chunks.
   * K2: relative L2 error <= 1e-4 per column group (M, b, density, SH), per
     column (each of the 61 nonzero ones whose plain norm is nonzero: a
     group's L2 would hide a small column mapped to the wrong place) and for
@@ -51,7 +54,8 @@ kernel tolerances):
     1e-5.
   * The pose gradient (d loss / d delta_t, d loss / d delta_r of
     `train.pose.pose_loss`: K1's residual, then K2 with ray cotangents)
-    against the plain versions at R = 64 and R = 256, after a NaN-poisoned
+    against the plain versions at R = 64, 256, 576 and 1024 (the last at
+    G = 256), after a NaN-poisoned
     allocator, on a frame with empty corner tiles: relative L2 <= 1e-4,
     finite, nonzero; and K2's ray cotangents of that loss row by row as
     above.
@@ -85,6 +89,8 @@ CONFIGS = {
     "logspace": BASE.replace(transmittance_prod=False),
     "degree_8": BASE.replace(kernel_degree=8),
     "degree_0": BASE.replace(kernel_degree=0),
+    "t24_g64": BASE.replace(tile_size=24),
+    "t32_g256": BASE.replace(tile_size=32, chunk_size=256),
 }
 
 
@@ -259,11 +265,11 @@ def test_forward_kernel_threshold_pairs(cuda, name):
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    # any chunk size is taken: G = 256 runs the kernel
+    wide_cfg = BASE.replace(chunk_size=256)
+    wide, wide_rays = _binned(cuda, wide_cfg, n=200)
+    _assert_kernel_matches_plain(wide, wide_rays, wide_cfg)
     scene, rays = _binned(cuda, BASE, n=200)
-    wide = torch.zeros((4, 256, 64), device=cuda)
-    with pytest.raises(ValueError, match="G <= 128"):
-        pf.tile_forward(wide, rays, scene.tile_counts,
-                        BASE.replace(chunk_size=256))
     with pytest.raises(ValueError, match="int32"):
         pf.tile_forward(scene.chunks, rays, scene.tile_counts.long(), BASE)
     with pytest.raises(ValueError, match="contiguous"):
@@ -381,6 +387,36 @@ def test_kernels_at_400_rays_per_tile(cuda, ray_grads):
     assert torch.equal(got, again)
     assert float(got[:, 5].mean()) > 1.0
     _assert_training_kernels_match_plain(scene, rays, cfg, ray_grads)
+
+
+#: (tile, chunk, image side): tiles of more rays than one block of K1
+#: (1024) or K2 (512) takes, and chunks walked in sub-chunks (K2) or, past
+#: 512 gaussians, staged in pieces (K1) with K2's checkpoints two
+#: sub-chunks apart
+SHAPES = [(23, 64, 92), (24, 64, 96), (32, 64, 96), (33, 64, 99),
+          (64, 64, 128), (16, 128, 96), (16, 256, 96), (16, 512, 96),
+          (16, 1024, 96), (32, 256, 96)]
+
+
+@pytest.mark.parametrize("tile,chunk,res", SHAPES,
+                         ids=[f"t{t}_g{g}" for t, g, _ in SHAPES])
+def test_kernels_at_tile_and_chunk_sizes(cuda, tile, chunk, res):
+    """K1 (serving and residual) and K2 (with and without ray gradients)
+    at R = 529, 576, 1024, 1089 and 4096 rays per tile and at G = 128, 256,
+    512 and 1024 gaussians per chunk, against their plain versions after a
+    NaN-poisoned allocator, two runs bit-identical."""
+    cfg = BASE.replace(tile_size=tile, chunk_size=chunk, ray_gradients=True)
+    scene, rays = _binned(cuda, cfg, n=3000, res=res, pad_factor=2)
+    assert rays.shape[2] == tile * tile
+    if chunk > 512:  # live rows in two of K1's pieces
+        assert int(scene.tile_counts.max()) > 512
+    torch.full((scene.chunks.numel() * 2,), float("nan"), device=cuda)
+    got = _assert_kernel_matches_plain(scene, rays, cfg)
+    with torch.no_grad():
+        again = pf.forward_dispatch(scene, rays, cfg, "cuda")
+    assert torch.equal(got, again)
+    assert float(got[:, 5].mean()) > 1.0
+    _assert_training_kernels_match_plain(scene, rays, cfg, True)
 
 
 def _assert_training_kernels_match_plain(scene, rays, cfg, ray_grads):
@@ -507,7 +543,8 @@ def test_segment_reduce_kernel_matches_plain(cuda):
     assert bool((got[want.abs().sum(1) == 0] == 0).all())
 
 
-@pytest.mark.parametrize("name", ["default", "logspace"])
+@pytest.mark.parametrize("name", ["default", "logspace", "t24_g64",
+                                  "t32_g256"])
 def test_training_step_gradients_match_plain_path(cuda, name):
     cfg = CONFIGS[name]
     g = torch.Generator(device=cuda).manual_seed(11)
@@ -566,18 +603,22 @@ def test_compact_reduce_kernel_matches_plain(cuda):
         assert bool((got[n_live:] == 0).all())
 
 
-@pytest.mark.parametrize("span,balance,remat",
-                         [(False, False, "full"), (True, False, "gather"),
-                          (True, True, "none")],
-                         ids=["stride_full", "span_gather", "balanced_none"])
-def test_banded_step_gradients_match_plain_path(cuda, span, balance, remat):
+@pytest.mark.parametrize("span,balance,remat,chunk",
+                         [(False, False, "full", 64),
+                          (True, False, "gather", 64),
+                          (True, True, "none", 64), (True, False, "full", 256)],
+                         ids=["stride_full", "span_gather", "balanced_none",
+                              "span_full_g256"])
+def test_banded_step_gradients_match_plain_path(cuda, span, balance, remat,
+                                                chunk):
+    cfg = BASE.replace(chunk_size=chunk)
     model, cam = _banded_scene(cuda, n=2000)
-    held = bd.BandedRenderer(128, 128, 2, BASE, remat=remat, span=span,
+    held = bd.BandedRenderer(128, 128, 2, cfg, remat=remat, span=span,
                              balance=balance, device=cuda)
     held.bind(model, cam)
     grads, launches = {}, {}
     for impl in ("cuda", "torch"):
-        r = bd.BandedRenderer(128, 128, 2, BASE, impl=impl, remat=remat,
+        r = bd.BandedRenderer(128, 128, 2, cfg, impl=impl, remat=remat,
                               span=span, balance=balance, device=cuda)
         r._bound = held._bound
         model.zero_grad(set_to_none=True)
@@ -674,15 +715,16 @@ def test_reduce_kernels_on_synthetic_plans(cuda, name):
         assert all(bool(o.any()) for o in outs.values())
 
 
-def _pose_binding(cuda, tile):
-    """A 96^2 frame's camera perturbed by sigma_t 0.03, bound against the
-    unperturbed frame's image at tile `tile` (empty corner tiles)."""
-    cfg = BASE.replace(tile_size=tile)
+def _pose_binding(cuda, tile, chunk=64, res=96):
+    """A res^2 frame's camera perturbed by sigma_t 0.03, bound against the
+    unperturbed frame's image at tile `tile`, chunk `chunk` (empty corner
+    tiles)."""
+    cfg = BASE.replace(tile_size=tile, chunk_size=chunk)
     g = torch.Generator(device=cuda).manual_seed(31)
     model = gt.random_gaussians(g, 2000, extent=0.8, device=cuda)
     with torch.no_grad():
         model.means[:, 2] -= 3.0
-    cam = gt.Camera.from_fovy(96, 96, 60.0, np.eye(4))
+    cam = gt.Camera.from_fovy(res, res, 60.0, np.eye(4))
     with torch.no_grad():
         target = gt.render.render_image_tiled(model, cam, cfg,
                                               device=cuda)["rgb"]
@@ -692,9 +734,11 @@ def _pose_binding(cuda, tile):
     return bound
 
 
-@pytest.mark.parametrize("tile", [8, 16], ids=["R64", "R256"])
-def test_pose_gradient_kernels_match_plain(cuda, tile):
-    bound = _pose_binding(cuda, tile)
+@pytest.mark.parametrize("tile,chunk,res", [(8, 64, 96), (16, 64, 96),
+                                            (24, 64, 144), (32, 256, 192)],
+                         ids=["R64", "R256", "R576", "R1024_g256"])
+def test_pose_gradient_kernels_match_plain(cuda, tile, chunk, res):
+    bound = _pose_binding(cuda, tile, chunk, res)
     grads, before = {}, pv.tile_backward.launches
     for impl in ("cuda", "torch"):
         # the kernels' outputs come from torch.empty: poison what they reuse

@@ -32,15 +32,13 @@ from gvrt_tpu.train.trainer import TrainConfig as JaxTrainConfig
 from gvrt_tpu.train.trainer import make_optimizer as jax_make_optimizer
 from gvrt_tpu_torch.app import main as cli_main
 from gvrt_tpu_torch.models.gaussians import LEAVES
-from gvrt_tpu_torch.render import binning as tb
-from gvrt_tpu_torch.render import segreduce as tsr
 from gvrt_tpu_torch.train import (TrainConfig, Trainer, latest_step,
                                   make_optimizer, restore_checkpoint,
                                   save_checkpoint)
 from gvrt_tpu_torch.parallel import camera_batch
 
-from port_scenes import (CFG_T8, assert_grad_close, camera, carry, jax_scene,
-                         torch_cfg)
+from port_scenes import (CFG_T8, assert_grad_close, camera, carry,
+                         carry_topology, jax_scene, torch_cfg)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -58,12 +56,6 @@ def _torch_loss(out):
     return ((out["rgb"] - 0.25) ** 2).mean() + 1e-2 * out["depth"].mean()
 
 
-def _carry_topology(topo):
-    t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
-    red = tsr.ReducePlan(*(t(x) for x in topo.red))
-    return tb.BinTopology(*(t(x) for x in topo[:-1]), red=red)
-
-
 @pytest.mark.parametrize("prod", [True, False], ids=["prod", "logspace"])
 def test_render_bound_grads_match_jax_scan(prod):
     cfg = g3.DEFAULT_CONFIG.replace(transmittance_prod=prod)
@@ -76,7 +68,7 @@ def test_render_bound_grads_match_jax_scan(prod):
 
     tm = carry(jm)
     tr = gt.render.TiledRenderer(32, 32, torch_cfg(cfg), device="cpu")
-    tr._bound = (_carry_topology(topo), tr._rays(cam))
+    tr._bound = (carry_topology(topo), tr._rays(cam))
     _torch_loss(tr.render_bound(tm)).backward()
     for k in LEAVES:
         assert np.abs(np.asarray(getattr(want, k))).max() > 0, k
