@@ -20,6 +20,7 @@ from ..config import resolve_device
 from ..io.ply import SplatSet
 from ..ops.kernels import scale_activation, sigmoid
 from ..ops.quaternion import normalize_quat, quat_to_rot9
+from ..utils.profiling import close_in_backward, span
 
 #: the six raw leaves, in the JAX package's field order
 LEAVES = ("means", "scales_log", "quats", "opacity_logit", "sh_dc", "sh_rest")
@@ -43,9 +44,14 @@ class ActivatedGaussians(NamedTuple):
         return self.sh_flat.reshape(-1, 3, 16).transpose(1, 2)
 
 
+@span("gvrt.param_table")
 def activate_leaves(means, scales_log, quats, opacity_logit, sh_dc,
                     sh_rest) -> ActivatedGaussians:
     """The activated view of six raw parameter tensors (LEAVES order)."""
+    # autograd's backward of the parameter table ends here (`param_rows`)
+    (means, scales_log, quats, opacity_logit, sh_dc,
+     sh_rest) = close_in_backward("gvrt.param_table.bwd", means, scales_log,
+                                  quats, opacity_logit, sh_dc, sh_rest)
     q = normalize_quat(quats)
     scales = scale_activation(scales_log)
     sh_flat = torch.cat(

@@ -36,6 +36,7 @@ from ..render.binning import (band_rays, bin_topology, binned_scene,
                               unband_image, untile)
 from ..render.pallas_forward import forward_dispatch, resolve_impl
 from ..render.tiled import _camera_mats
+from ..utils.profiling import span
 from .distributed import local_batch_slice, rank_device
 
 
@@ -176,6 +177,7 @@ class CameraBatch(NamedTuple):
     rays: torch.Tensor   # (B, num_tiles, 24, R): binning.tile_rays layout
 
 
+@span("gvrt.rays")
 def camera_batch(cameras: Sequence, cfg: RenderConfig,
                  device=None) -> CameraBatch:
     """Stack the cameras' matrices and tiled rays (rays on `device`, the

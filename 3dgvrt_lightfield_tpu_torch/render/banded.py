@@ -42,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import DEFAULT_CONFIG, RenderConfig, resolve_device
 from ..models.gaussians import GaussianModel
+from ..utils.profiling import count, span
 from .binning import (band_rays, band_rays_split, bin_topology_from_table,
                       binned_scene, frame_cull_table, gather_from_rows,
                       plan_capacity_from_table, plan_compact_reduce_from_table,
@@ -253,6 +254,7 @@ class BandedRenderer:
         self.capacity_range = 0
         self._bound = None      # (topologies, rays per band)
 
+    @span("gvrt.plan")
     def plan(self, model: GaussianModel, camera, slack: float = 1.3):
         if self.balance:
             specs, caps = plan_capacity_balanced(model, camera, self.n_bands,
@@ -301,11 +303,13 @@ class BandedRenderer:
     def _replan(self, model: GaussianModel, camera):
         """Plan afresh, max-merged with the held capacities (a re-plan never
         shrinks them)."""
+        count("gvrt.replans")
         cap0 = self.capacity
         self.plan(model, camera)
         self.capacity = (max(cap0[0], self.capacity[0]),
                          max(cap0[1], self.capacity[1]))
 
+    @span("gvrt.bind")
     def bind(self, model: GaussianModel, camera, replan: bool = False):
         """Build and hold all bands' topologies for this (model, camera).
 
@@ -348,6 +352,7 @@ class BandedRenderer:
         return _outputs(img, overflow)
 
 
+@span("gvrt.frame")
 def render_image_banded(model: GaussianModel, camera, n_bands: int,
                         cfg: RenderConfig = DEFAULT_CONFIG,
                         capacity: Optional[tuple] = None, impl: str = "auto",

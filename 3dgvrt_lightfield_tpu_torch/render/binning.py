@@ -43,6 +43,7 @@ from ..ops.aabb import intersect_aabb
 from ..ops.kernels import kernel_scale
 from ..ops.sh import sh_basis_components
 from ..models.gaussians import ActivatedGaussians
+from ..utils.profiling import count, open_in_backward, span
 from .param_grads import chunked_gather
 from .segreduce import (GROUP, build_reduce_plan, build_reduce_plan_compact,
                         plan_rows, plan_rows_compact)
@@ -105,6 +106,7 @@ def _tile_index(px, ts: int, n: int) -> torch.Tensor:
     return torch.clamp(torch.floor(px / ts), 0, n - 1).to(_I32)
 
 
+@span("gvrt.binning.cull")
 def frame_cull_table(act: ActivatedGaussians, w2c, proj, width, height,
                      cfg: RenderConfig) -> FrameCullTable:
     """Per-Gaussian GLOBAL tile rects + cull geometry (see FrameCullTable).
@@ -262,11 +264,18 @@ def _pair_ellipsoid_cull(tile_x, tile_y, csx, csy, csz, v9, p00, p11,
     return keep
 
 
+#: binning's stages inside `bin_topology_from_table`
+_EXPAND = span("gvrt.binning.expand")
+_SORT = span("gvrt.binning.sort")
+_LAYOUT = span("gvrt.binning.layout")
+_REDUCE_PLAN = span("gvrt.binning.reduce_plan")
+
 #: above this many Gaussians the full-id-space reduce plan's O(N) padding
 #: rows outweigh it: the gather's backward takes the prefix fallback
 REDUCE_PLAN_MAX_N = 1_500_000
 
 
+@span("gvrt.binning")
 def bin_topology(act: ActivatedGaussians, w2c, proj, width: int, height: int,
                  cfg: RenderConfig, capacity: int, capacity_padded: int,
                  row_offset: int = 0, row_stride: int = 1,
@@ -290,6 +299,7 @@ def bin_topology(act: ActivatedGaussians, w2c, proj, width: int, height: int,
                                    capacity_range, with_reduce_plan)
 
 
+@span("gvrt.binning")
 def bin_topology_from_table(tab: FrameCullTable, proj, width: int,
                             height: int, cfg: RenderConfig, capacity: int,
                             capacity_padded: int, row_offset: int = 0,
@@ -336,68 +346,83 @@ def bin_topology_from_table(tab: FrameCullTable, proj, width: int,
         0, 2 ** depth_bits - 1)
 
     # pair p -> gaussian id via scatter of range starts + running max
-    gid = torch.arange(n, dtype=_I64, device=dev)
-    pair_g = _scatter_cummax_fill(capacity, offsets, gid, valid & (counts > 0))
-    p_idx = torch.arange(capacity, dtype=_I64, device=dev)
-    in_range = p_idx < total
-    j = p_idx - offsets[pair_g]
-    e_rw = rect_w[pair_g]
-    tile_x = tx0[pair_g] + j % e_rw
-    tile_y = ty0[pair_g] + torch.div(j, e_rw, rounding_mode="floor")
-    tile_y_global = tile_y * row_stride + row_offset
-    v9 = torch.stack(tab.v, dim=1)[pair_g]
-    fine = _pair_ellipsoid_cull(tile_x, tile_y_global, tab.cs[0][pair_g],
-                                tab.cs[1][pair_g], tab.cs[2][pair_g], v9,
-                                float(proj[0, 0]), float(proj[1, 1]),
-                                width, height, cfg.tile_size)
-    tile_id = torch.where(in_range & fine, tile_y * nx + tile_x, num_tiles)
+    with _EXPAND:
+        gid = torch.arange(n, dtype=_I64, device=dev)
+        pair_g = _scatter_cummax_fill(capacity, offsets, gid,
+                                      valid & (counts > 0))
+        p_idx = torch.arange(capacity, dtype=_I64, device=dev)
+        in_range = p_idx < total
+        j = p_idx - offsets[pair_g]
+        e_rw = rect_w[pair_g]
+        tile_x = tx0[pair_g] + j % e_rw
+        tile_y = ty0[pair_g] + torch.div(j, e_rw, rounding_mode="floor")
+        tile_y_global = tile_y * row_stride + row_offset
+        v9 = torch.stack(tab.v, dim=1)[pair_g]
+        fine = _pair_ellipsoid_cull(tile_x, tile_y_global, tab.cs[0][pair_g],
+                                    tab.cs[1][pair_g], tab.cs[2][pair_g], v9,
+                                    float(proj[0, 0]), float(proj[1, 1]),
+                                    width, height, cfg.tile_size)
+        tile_id = torch.where(in_range & fine, tile_y * nx + tile_x,
+                              num_tiles)
 
     # one packed key: tile in the high bits, quantized depth in the low
     # bits; the stable sort keeps pre-sort pair order among equal keys
-    key = (tile_id << depth_bits) | torch.where(in_range, depth_q[pair_g], 0)
-    key_sorted, p_sorted = torch.sort(key, stable=True)
-    g_sorted = pair_g[p_sorted]
-    tile_sorted = key_sorted >> depth_bits
+    with _SORT:
+        key = (tile_id << depth_bits) | torch.where(in_range,
+                                                    depth_q[pair_g], 0)
+        key_sorted, p_sorted = torch.sort(key, stable=True)
+        g_sorted = pair_g[p_sorted]
+        tile_sorted = key_sorted >> depth_bits
 
-    tiles = torch.arange(num_tiles + 1, dtype=_I64, device=dev)
-    tile_edges = torch.searchsorted(tile_sorted, tiles, right=False)
-    tile_counts = torch.diff(tile_edges, append=tile_edges.new_tensor([capacity]))
-    starts = tile_edges
-    padded_counts = torch.div(tile_counts + g - 1, g, rounding_mode="floor") * g
-    padded_starts = torch.cumsum(padded_counts, 0) - padded_counts
-    padded_total = padded_starts[num_tiles]  # excludes dummy tile
-    overflow = overflow + torch.clamp_min(padded_total - capacity_padded, 0)
+    with _LAYOUT:
+        tiles = torch.arange(num_tiles + 1, dtype=_I64, device=dev)
+        tile_edges = torch.searchsorted(tile_sorted, tiles, right=False)
+        tile_counts = torch.diff(tile_edges,
+                                 append=tile_edges.new_tensor([capacity]))
+        starts = tile_edges
+        padded_counts = torch.div(tile_counts + g - 1, g,
+                                  rounding_mode="floor") * g
+        padded_starts = torch.cumsum(padded_counts, 0) - padded_counts
+        padded_total = padded_starts[num_tiles]  # excludes dummy tile
+        overflow = overflow + torch.clamp_min(padded_total - capacity_padded,
+                                              0)
 
-    # chunk -> tile mapping (+ trailing dummy chunks)
-    num_chunks = capacity_padded // g
-    chunk_arr = torch.zeros(num_chunks, dtype=_I64, device=dev)
-    first_chunk = torch.div(padded_starts[:num_tiles], g, rounding_mode="floor")
-    has = (tile_counts[:num_tiles] > 0) & (first_chunk < num_chunks)
-    chunk_arr.scatter_reduce_(0, first_chunk[has], tiles[:num_tiles][has],
-                              "amax")
-    last = torch.clamp_max(torch.div(padded_total, g, rounding_mode="floor"),
-                           num_chunks - 1)
-    chunk_arr.scatter_reduce_(0, last.reshape(1), tiles[num_tiles:], "amax")
-    chunk_tile = torch.cummax(chunk_arr, 0).values
-    chunk_first = torch.cat([torch.ones(1, dtype=_I64, device=dev),
-                             (chunk_tile[1:] != chunk_tile[:-1]).long()])
+        # chunk -> tile mapping (+ trailing dummy chunks)
+        num_chunks = capacity_padded // g
+        chunk_arr = torch.zeros(num_chunks, dtype=_I64, device=dev)
+        first_chunk = torch.div(padded_starts[:num_tiles], g,
+                                rounding_mode="floor")
+        has = (tile_counts[:num_tiles] > 0) & (first_chunk < num_chunks)
+        chunk_arr.scatter_reduce_(0, first_chunk[has],
+                                  tiles[:num_tiles][has], "amax")
+        last = torch.clamp_max(torch.div(padded_total, g,
+                                         rounding_mode="floor"),
+                               num_chunks - 1)
+        chunk_arr.scatter_reduce_(0, last.reshape(1), tiles[num_tiles:],
+                                  "amax")
+        chunk_tile = torch.cummax(chunk_arr, 0).values
+        chunk_first = torch.cat([torch.ones(1, dtype=_I64, device=dev),
+                                 (chunk_tile[1:] != chunk_tile[:-1]).long()])
 
-    # sorted pair -> padded slot: dest = p + (padded_starts - starts)[tile(p)];
-    # the delta is non-decreasing over sorted pairs, so a scatter at tile
-    # edges + cummax replaces a per-pair gather
-    delta_at = padded_starts - starts
-    fill = torch.zeros(capacity, dtype=_I64, device=dev)
-    edge = tile_edges[:num_tiles]
-    in_cap = edge < capacity
-    fill.scatter_reduce_(0, edge[in_cap], delta_at[:num_tiles][in_cap], "amax")
-    delta = torch.cummax(fill, 0).values
-    keep = tile_sorted < num_tiles
-    dest_drop = torch.where(keep, p_idx + delta, capacity_padded)
-    placed = dest_drop < capacity_padded
-    pair_gauss = torch.full((capacity_padded,), n, dtype=_I64, device=dev)
-    pair_gauss[dest_drop[placed]] = g_sorted[placed]
-    pair_pos = torch.full((capacity,), capacity_padded, dtype=_I64, device=dev)
-    pair_pos[p_sorted] = dest_drop
+        # sorted pair -> padded slot: dest = p + (padded_starts -
+        # starts)[tile(p)]; the delta is non-decreasing over sorted pairs,
+        # so a scatter at tile edges + cummax replaces a per-pair gather
+        delta_at = padded_starts - starts
+        fill = torch.zeros(capacity, dtype=_I64, device=dev)
+        edge = tile_edges[:num_tiles]
+        in_cap = edge < capacity
+        fill.scatter_reduce_(0, edge[in_cap], delta_at[:num_tiles][in_cap],
+                             "amax")
+        delta = torch.cummax(fill, 0).values
+        keep = tile_sorted < num_tiles
+        dest_drop = torch.where(keep, p_idx + delta, capacity_padded)
+        placed = dest_drop < capacity_padded
+        pair_gauss = torch.full((capacity_padded,), n, dtype=_I64,
+                                device=dev)
+        pair_gauss[dest_drop[placed]] = g_sorted[placed]
+        pair_pos = torch.full((capacity,), capacity_padded, dtype=_I64,
+                              device=dev)
+        pair_pos[p_sorted] = dest_drop
 
     # grouped gradient-reduce layout (segreduce.py): pure topology work,
     # amortized over the bind/refresh cadence.  Three regimes: the compact
@@ -409,16 +434,19 @@ def bin_topology_from_table(tab: FrameCullTable, proj, width: int,
         assert capacity_live % GROUP == 0, capacity_live
         # without a measured survivor count the pair capacity bounds it
         cap_r = capacity_reduce or plan_rows_compact(capacity)
-        red, red_overflow = build_reduce_plan_compact(
-            pair_g, pair_pos, offsets, counts, n, capacity, capacity_padded,
-            capacity_live, cap_r, capacity_range)
+        with _REDUCE_PLAN:
+            red, red_overflow = build_reduce_plan_compact(
+                pair_g, pair_pos, offsets, counts, n, capacity,
+                capacity_padded, capacity_live, cap_r, capacity_range)
         overflow = overflow + red_overflow
     elif with_reduce_plan and n <= REDUCE_PLAN_MAX_N:
-        red, red_overflow = build_reduce_plan(
-            pair_g, pair_pos, offsets, counts, n, capacity, capacity_padded,
-            capacity_reduce)
+        with _REDUCE_PLAN:
+            red, red_overflow = build_reduce_plan(
+                pair_g, pair_pos, offsets, counts, n, capacity,
+                capacity_padded, capacity_reduce)
         overflow = overflow + red_overflow
 
+    count("gvrt.pairs", tile_edges[num_tiles])
     return BinTopology(
         chunk_tile=chunk_tile.to(_I32),
         chunk_first=chunk_first.to(_I32),
@@ -433,6 +461,7 @@ def bin_topology_from_table(tab: FrameCullTable, proj, width: int,
     )
 
 
+@span("gvrt.param_table")
 def param_rows(act: ActivatedGaussians, cfg: RenderConfig) -> torch.Tensor:
     """Fused (N+1, 64) per-Gaussian parameter table (dummy row N).
 
@@ -456,9 +485,11 @@ def param_rows(act: ActivatedGaussians, cfg: RenderConfig) -> torch.Tensor:
     rows[:n, 9:12] = torch.stack(b_cols, dim=1)
     rows[:n, 12] = act.densities
     rows[:n, 16:64] = act.sh_flat
-    return rows
+    # autograd's backward of the table, to `activate_leaves`, starts here
+    return open_in_backward("gvrt.param_table.bwd", rows)
 
 
+@span("gvrt.gather")
 def gather_from_rows(rows64: torch.Tensor, topo: BinTopology,
                      cfg: RenderConfig, impl: str = "auto") -> torch.Tensor:
     """(N+1, 64) table + topology -> (num_chunks, G, 64) kernel blocks.
@@ -622,6 +653,7 @@ def plan_capacity(act: ActivatedGaussians, w2c, proj, width, height,
     return plan_capacity_from_table(tab, proj, width, height, cfg, slack, band)
 
 
+@span("gvrt.rays")
 def tile_rays(camera, cfg: RenderConfig, device, aabb=None,
               tmax_clip=None) -> torch.Tensor:
     """Per-pixel rays + AABB clip range + SH basis, tiled to (T, 24, R).
@@ -632,12 +664,15 @@ def tile_rays(camera, cfg: RenderConfig, device, aabb=None,
     else cfg.aabb.  `tmax_clip` (H, W), optional, caps each ray's march
     distance (combined Gaussian and mesh scenes: an opaque surface ends the
     march)."""
-    o, d = camera.rays()
-    o = torch.as_tensor(np.ascontiguousarray(o), device=device)
-    d = torch.as_tensor(np.ascontiguousarray(d), device=device)
+    with span("gvrt.rays.numpy"):
+        o, d = camera.rays()
+    with span("gvrt.rays.upload"):
+        o = torch.as_tensor(np.ascontiguousarray(o), device=device)
+        d = torch.as_tensor(np.ascontiguousarray(d), device=device)
     return tile_ray_rows(o, d, cfg, aabb, tmax_clip)
 
 
+@span("gvrt.rays.rows")
 def tile_ray_rows(o: torch.Tensor, d: torch.Tensor, cfg: RenderConfig,
                   aabb=None, tmax_clip=None) -> torch.Tensor:
     """(H, W, 3) origins and unit directions -> the (T, 24, R) tile rays of
@@ -667,6 +702,7 @@ def untile(img_tiled: torch.Tensor, width: int, height: int, ts: int):
             .permute(0, 3, 1, 4, 2).reshape(height, width, c))
 
 
+@span("gvrt.rays")
 def band_rays(camera, cfg: RenderConfig, stride: int, device,
               mode: str = "stride", aabb=None) -> torch.Tensor:
     """Tiled rays split into `stride` tile-row bands: (stride, local_tiles,
@@ -706,6 +742,7 @@ def plan_row_split(tab: FrameCullTable, proj, width, height,
     return tuple((cuts[i], cuts[i + 1] - cuts[i]) for i in range(n_bands))
 
 
+@span("gvrt.rays")
 def band_rays_split(camera, cfg: RenderConfig, specs, device):
     """Per-band ray arrays of a variable (offset, count) row split: a tuple
     of (count * nx, RAY_ROWS, R) tensors."""

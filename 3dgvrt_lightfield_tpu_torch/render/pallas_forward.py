@@ -29,6 +29,7 @@ import torch
 from .. import _build
 from ..config import RenderConfig
 from ..ops.kernels import gray_cutoff
+from ..utils.profiling import span
 from .binning import BinnedScene
 from .tile_math import ACC_T, BACKGROUND, RAY_ROWS, chunk_update, init_acc
 
@@ -228,6 +229,7 @@ def forward_tiles_reference(binned: BinnedScene, rays_tiled: torch.Tensor,
     return _composite_plain(binned.chunks, rays_tiled, binned.tile_counts, cfg)
 
 
+@span("gvrt.composite")
 def forward_dispatch(binned: BinnedScene, rays_tiled: torch.Tensor,
                      cfg: RenderConfig, impl: str) -> torch.Tensor:
     """One impl -> kernel dispatch for every render path ("cuda" | "torch").

@@ -31,6 +31,7 @@ import torch
 
 from .. import _build
 from ..config import RenderConfig
+from ..utils.profiling import span
 from .pallas_forward import (_check_device, _check_kernel_inputs,
                              _composite_plain, tile_batch, tile_chunk_runs,
                              tile_forward_residual)
@@ -148,6 +149,7 @@ class _RenderTiles(torch.autograd.Function):
         return acc
 
     @staticmethod
+    @span("gvrt.composite.bwd")
     def backward(ctx, bar_acc):
         chunks, rays, tile_counts, t_in = ctx.saved_tensors
         bar_acc = bar_acc.contiguous()

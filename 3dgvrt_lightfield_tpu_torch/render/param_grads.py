@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .segreduce import (GROUP, CompactReducePlan, segment_reduce,
                         segment_reduce_compact_table,
                         segment_reduce_compact_table_plain,
@@ -93,6 +94,7 @@ class _ChunkedGather(torch.autograd.Function):
         return rows[pair_gauss.long()].view(-1, chunk_size, rows.shape[1])
 
     @staticmethod
+    @span("gvrt.gather.bwd")
     def backward(ctx, bar):
         pair_pos, offsets, counts = ctx.saved_tensors
         bar_flat = bar.reshape(-1, bar.shape[-1]).contiguous()

@@ -14,6 +14,7 @@ import torch
 
 from ..config import RenderConfig
 from ..models.gaussians import GaussianModel, activate_leaves
+from ..utils.profiling import span
 from .binning import param_rows
 
 
@@ -26,6 +27,7 @@ class _Rows64(torch.autograd.Function):
                                           opacity_logit, sh_dc, sh_rest), cfg)
 
     @staticmethod
+    @span("gvrt.param_table.bwd")
     def backward(ctx, g):
         means, scales_log, quats, opacity_logit = ctx.saved_tensors
         n = means.shape[0]
@@ -92,6 +94,7 @@ class _Rows64(torch.autograd.Function):
                 torch.stack(d_q, dim=1), d_ol, d_shdc, d_shrest)
 
 
+@span("gvrt.param_table")
 def rows64_from_model(model: GaussianModel, cfg: RenderConfig) -> torch.Tensor:
     """Fused (N+1, 64) parameter table straight from the raw model.
 

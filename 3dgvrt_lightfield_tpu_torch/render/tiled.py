@@ -22,6 +22,7 @@ import torch
 
 from ..config import DEFAULT_CONFIG, RenderConfig, resolve_device
 from ..models.gaussians import GaussianModel
+from ..utils.profiling import count, span
 from .binning import (bin_topology, binned_scene, frame_cull_table,
                       gather_chunks, gather_from_rows,
                       plan_capacity_from_table,
@@ -81,6 +82,7 @@ class TiledRenderer:
                              f"{self.device}")
 
     @torch.no_grad()
+    @span("gvrt.plan")
     def plan(self, model: GaussianModel, cameras: Sequence,
              slack: float = 1.3, bucket_ratio: float = None) -> tuple:
         """Measure pair counts over representative cameras -> static capacity.
@@ -112,6 +114,7 @@ class TiledRenderer:
     def _replan_merged(self, model, camera):
         """Re-plan for `camera`, max-merged with the held capacities so a
         single-camera re-plan never shrinks a multi-camera plan."""
+        count("gvrt.replans")
         cap0, cap_r0 = self.capacity, self.capacity_reduce
         self.plan(model, [camera])
         self.capacity = (max(cap0[0], self.capacity[0]),
@@ -131,9 +134,12 @@ class TiledRenderer:
         # silently serve another camera's rays
         key = camera.content_key()
         if key not in self._ray_cache:
+            count("gvrt.rays.built")
             if len(self._ray_cache) > 64:
                 self._ray_cache.clear()
             self._ray_cache[key] = tile_rays(camera, self.cfg, self.device)
+        else:
+            count("gvrt.rays.cache_hit")
         return self._ray_cache[key]
 
     def _render_once(self, act, camera):
@@ -144,6 +150,7 @@ class TiledRenderer:
                                self.cfg, self.impl)
         return _acc_outputs(acc, self.width, self.height, self.cfg, topo)
 
+    @span("gvrt.frame")
     def render(self, model: GaussianModel, camera):
         """Render one frame -> dict of rgb (H, W, 3), depth, transmittance,
         hit_count (H, W), num_pairs and overflow.  Capacity overflow drops
@@ -161,6 +168,7 @@ class TiledRenderer:
         return out
 
     @torch.no_grad()
+    @span("gvrt.bind")
     def bind(self, model: GaussianModel, camera):
         """Build and hold this (model, camera)'s pair-list topology;
         subsequent `render_bound` calls skip the whole binning pass."""
@@ -175,6 +183,7 @@ class TiledRenderer:
         self._bound = (topo, self._rays(camera))
         return topo
 
+    @span("gvrt.frame")
     def render_bound(self, model: GaussianModel):
         """Render against the topology held by `bind`: one parameter gather
         plus the tile kernel.  Exact for the bound model; culling and depth

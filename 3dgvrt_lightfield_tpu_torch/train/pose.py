@@ -24,6 +24,7 @@ from ..io.cameras import Camera
 from ..render import binning
 from ..render.pallas_forward import forward_dispatch, resolve_impl
 from ..render.tiled import _camera_mats
+from ..utils.profiling import span
 
 
 def _matmul3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -123,6 +124,7 @@ class PoseBinding(NamedTuple):
     target: torch.Tensor         # (T, 3, R) target image in tile layout
 
 
+@span("gvrt.bind")
 def bind_pose(model, camera: Camera, target,
               cfg: RenderConfig = DEFAULT_CONFIG) -> PoseBinding:
     """Plan, bin and gather the scene once at the camera's base pose (pose
@@ -184,11 +186,14 @@ def optimize_camera_poses(model, cameras: Sequence[Camera],
             loss0 = float(pose_loss(bound, t, r, impl))
         val = loss0
         for _ in range(steps):
-            opt.zero_grad(set_to_none=True)
-            loss = pose_loss(bound, t, r, impl)
-            loss.backward()
-            opt.step()
-            val = float(loss.detach())
+            with span("gvrt.step"):
+                opt.zero_grad(set_to_none=True)
+                loss = pose_loss(bound, t, r, impl)
+                with span("gvrt.backward"):
+                    loss.backward()
+                with span("gvrt.optimizer"):
+                    opt.step()
+                val = float(loss.detach())
         dt, dr = _host(t), _host(r)
         out_cams.append(apply_pose_delta(cam, dt, dr))
         rep = {"loss0": loss0, "loss1": val,

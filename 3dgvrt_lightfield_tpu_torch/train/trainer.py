@@ -31,6 +31,7 @@ from ..parallel.sharding import (CameraBatch, Mesh, _render_one,
                                 average_gradients, local_cameras)
 from ..render.banded import BandedRenderer
 from ..render.pallas_forward import resolve_impl
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +101,7 @@ class GroupAdam(_MeansDecay, torch.optim.Adam):
         super().__init__(_param_groups(model, tc), eps=1e-15)
 
     @torch.no_grad()
+    @span("gvrt.optimizer")
     def step(self, closure=None):
         self._decay_means_lr()
         return super().step(closure)
@@ -167,6 +169,7 @@ class GroupAdafactor(_MeansDecay, torch.optim.Optimizer):
         super().__init__(_param_groups(model, tc), {})
 
     @torch.no_grad()
+    @span("gvrt.optimizer")
     def step(self, closure=None):
         loss = None
         if closure is not None:
@@ -193,6 +196,7 @@ def make_optimizer(tc: TrainConfig, model: GaussianModel):
     return _OPTIMIZERS[tc.optimizer](model, tc)
 
 
+@span("gvrt.loss")
 def _image_loss(rgb, target, tc: TrainConfig) -> torch.Tensor:
     diff = rgb - target
     return (tc.l1_weight * diff.abs().mean()
@@ -217,7 +221,8 @@ def _batch_backward(model: GaussianModel, cams: CameraBatch,
                           cams.rays[i], width, height, cfg, cap, cap_pad,
                           impl)
         loss = _image_loss(img[..., 0:3], targets[i], tc)
-        (loss / b).backward()
+        with span("gvrt.backward"):
+            (loss / b).backward()
         losses.append(loss.detach())
     return torch.stack(losses).mean()
 
@@ -280,6 +285,7 @@ class Trainer:
     def init(self, model: GaussianModel):
         return (model, make_optimizer(self.tc, model))
 
+    @span("gvrt.bind")
     def bind(self, model: GaussianModel, camera):
         """(Re)build the held per-band topologies for `camera` now: what the
         banded `step` does every `refresh_every` steps and on a new camera.
@@ -303,11 +309,13 @@ class Trainer:
         optimizer.zero_grad(set_to_none=True)
         out = self.renderer.render_bound(model)
         loss = _image_loss(out["rgb"], target, self.tc)
-        loss.backward()
+        with span("gvrt.backward"):
+            loss.backward()
         optimizer.step()
         self.last_overflow = out["overflow"]
         return (model, optimizer), loss.detach()
 
+    @span("gvrt.step")
     def step(self, state, cams, targets: torch.Tensor):
         if self.n_bands > 1:
             return self._banded_step(state, cams, targets)

@@ -1,34 +1,34 @@
 #!/usr/bin/env python3
-"""Where the time of one serving frame, or one training step, of the
-PyTorch port goes, on the card.
+"""Where the time of a serving frame, a training step, the garden-scale
+banded step or a pose step of the PyTorch port goes, on the card, read
+from the program's own spans and counters.
 
-Uses chip_smoke.py's full-width frame (1920x1088, the 300k-Gaussian bench
-scene) and prints JSON lines:
-  * per-stage CUDA-event medians.  Serving (default): cull table, topology
-    (pair expansion, fine cull, sort, chunk layout), parameter table,
-    gather, tile kernel, untile, and the whole `TiledRenderer.render`.
-    Training (--train): the topology refresh with its reduce plan,
-    rows64_from_model forward and backward, the gather, K1 with its
-    residual, the loss and its cotangent, K2, K3, and the whole step of
-    chip_smoke.py's training window (forward, backward, SGD).  The
-    garden-scale banded step (--garden, chip_smoke.py's 5M window): per band
-    the gather, K1 with its residual, K2, K4's compact mode, K4's table
-    mode (the step's route to the parameter-table gradient) and the
-    two-step route it replaced (compact mode, then the expansion back to
-    the table), then rows64_from_model forward and backward, Adam, and the
-    whole Trainer.step.  A pose step (--pose, chip_smoke.py's pose
-    refinement: the frame's camera perturbed, the unperturbed rgb as
-    target): bind_pose, the in-graph rays and their backward, K1 with its
-    residual, K2 with ray cotangents, and the whole step (loss, backward,
-    Adam on the 6-DOF delta);
-  * the device-busy share from a torch.profiler trace of 3 frames or steps
-    (kernel time over wall time) and the top CUDA kernels by device time.
+Runs one path on chip_smoke.py's scenes at 1920x1088 under
+`utils.profiling.trace(DIR)` for a few frames or steps after a warm-up:
+  * serving (default): `TiledRenderer.render` under no_grad on the 300k
+    bench scene, a new camera each frame (a viewer moving sideways), so
+    every frame bins and makes its rays;
+  * --train: the unbanded `Trainer.step` (batch 1, its camera batch made
+    once) against a constant target;
+  * --garden: the banded `Trainer.step` on the 5M garden scene, y-sorted,
+    2 span bands, refresh every 10 steps (a bind in the stretch);
+  * --pose: `optimize_camera_poses` of the frame's camera perturbed as
+    chip_smoke.py perturbs it, against the unperturbed render.
+It prints JSON lines: the card; the program's span table per frame or
+step (calls, host ms, self host ms, device ms; largest host time first)
+and its counters per unit; the device's idle share over the traced
+stretch, 1 - the union of the kernel intervals over the stretch's wall
+time; the longest idle gaps, each labelled by the innermost `gvrt.` span
+open over it; and the top kernels by device time.  DIR keeps the Chrome
+trace (`trace.json`) and the span table (`span_table.json`).
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 scripts/torch_frame_profile.py [--train | --garden | --pose]
+    python3 scripts/torch_frame_profile.py [--train | --garden | --pose] \
+        [--units N] [--out DIR]
 """
 
+import argparse
 import json
 import os
 import sys
@@ -37,285 +37,174 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from portbench.trace import _union_us  # noqa: E402
 
-def profile(torch, card, fn, label):
-    """Device-busy share and top kernels of 3 runs of fn under the
-    profiler."""
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_time_total", 0) > 0
-              and e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.device_time_total for e in events) / 1e3
-    print(json.dumps({"profile": f"{label} x3", "wall_ms": wall_ms,
-                      "device_busy_ms": busy_ms,
-                      "idle_share": 1.0 - busy_ms / wall_ms,
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def report(logdir, wall_s, card):
+    """Print the span table, the counters, the idle share, the longest
+    idle gaps and the top kernels of the trace in `logdir`."""
+    with open(os.path.join(logdir, "span_table.json")) as f:
+        table = json.load(f)
+    units = (table["units"].get("gvrt.frame")
+             or table["units"].get("gvrt.step") or 1)
+    for name, row in sorted(table["spans"].items(),
+                            key=lambda kv: -kv[1]["host_ms"]):
+        print(json.dumps({
+            "span": name, "calls_per_unit": row["calls"] / units,
+            "host_ms": row["host_ms"] / units,
+            "self_host_ms": row["self_host_ms"] / units,
+            "device_ms": None if row["device_ms"] is None
+            else row["device_ms"] / units}), flush=True)
+    print(json.dumps({"units": table["units"], "counts_per_unit": {
+        k: v / units for k, v in table["counts"].items()}}), flush=True)
+    with open(os.path.join(logdir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels, ranges, by_name = [], [], {}
+    for e in events:
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        t, d, name = float(e["ts"]), float(e["dur"]), str(e.get("name"))
+        if e.get("cat") in DEVICE_CATS:
+            kernels.append((t, t + d))
+            by_name[name] = by_name.get(name, 0.0) + d
+        elif e.get("cat") == "user_annotation" and name.startswith("gvrt."):
+            ranges.append((t, d, name))
+    busy, gaps = _union_us(kernels)
+    print(json.dumps({"wall_ms": 1e3 * wall_s, "busy_ms": busy / 1e3,
+                      "idle_share": 1.0 - busy / 1e6 / wall_s,
                       "card": card}), flush=True)
-    for e in sorted(events, key=lambda e: -e.device_time_total)[:20]:
-        print(json.dumps({"kernel": e.key[:90], "calls": e.count,
-                          "device_ms_per_run": e.device_time_total / 3e3}),
+    for s, e in sorted(gaps, key=lambda g: g[0] - g[1])[:8]:
+        mid = 0.5 * (s + e)
+        inner = [(d, n) for t, d, n in ranges if t <= mid <= t + d]
+        print(json.dumps({"idle_gap_ms": (e - s) / 1e3,
+                          "span": min(inner)[1] if inner else None}),
+              flush=True)
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+        print(json.dumps({"kernel": name[:90],
+                          "device_ms_per_unit": us / 1e3 / units}),
               flush=True)
 
 
-def train_stages(torch, card, model, cam, cfg):
-    """Stage split of chip_smoke.py's training step at full width."""
-    import chip_smoke
-    from gvrt_tpu_torch.render import binning
-    from gvrt_tpu_torch.render import pallas_forward as pf
-    from gvrt_tpu_torch.render import pallas_vjp as pv
-    from gvrt_tpu_torch.render import segreduce as sr
-    from gvrt_tpu_torch.render.rows_vjp import rows64_from_model
-    from gvrt_tpu_torch.render.tiled import TiledRenderer, _camera_mats
-
+def serving(gt, torch, chip_smoke, dev):
+    import numpy as np
+    cfg = gt.DEFAULT_CONFIG
     w, h = chip_smoke.FULL_W, chip_smoke.FULL_H
-    r = TiledRenderer(w, h, cfg, device=model.device)
-    r.plan(model, [cam])
-    w2c, proj = _camera_mats(cam)
-    rays = r._rays(cam)
-    target = torch.full((rays.shape[0], 3, rays.shape[2]),
-                        chip_smoke.TRAIN_TARGET, device=model.device)
+    model = chip_smoke.bench_scene(gt, torch, dev)
+    r = gt.render.TiledRenderer(w, h, cfg, device=dev)
+    frame = [0]
 
-    def topology():
+    def camera():
+        c2w = np.eye(4)
+        c2w[0, 3] = 0.002 * frame[0]
+        frame[0] += 1
+        return gt.Camera.from_fovy(w, h, 50.0, c2w)
+
+    r.plan(model, [camera()])
+
+    def unit():
         with torch.no_grad():
-            return binning.bin_topology(model.activate(), w2c, proj, w, h,
-                                        cfg, *r.capacity,
-                                        capacity_reduce=r.capacity_reduce)
-
-    topo = topology()
-    n_groups = -(-(model.num_gaussians + 1) // sr.GROUP)
-
-    def step():
-        rows = rows64_from_model(model, cfg)
-        chunks = binning.gather_from_rows(rows, topo, cfg, "cuda")
-        acc = pf.forward_dispatch(binning.binned_scene(chunks, topo), rays,
-                                  cfg, "cuda")
-        ((acc[:, 0:3] - target) ** 2).mean().backward()
-        with torch.no_grad():
-            for p in model.leaves():
-                p -= chip_smoke.TRAIN_LR * p.grad
-                p.grad = None
-
-    rows = rows64_from_model(model, cfg)
-    with torch.no_grad():
-        chunks = binning.gather_from_rows(rows, topo, cfg, "cuda")
-        acc, t_in = pf.tile_forward_residual(chunks, rays, topo.tile_counts,
-                                             cfg)
-        bar = torch.zeros_like(acc)
-        bar[:, 0:3] = 2.0 * (acc[:, 0:3] - target) / target.numel()
-        bar_chunks, _ = pv.tile_backward(chunks, rays, topo.tile_counts,
-                                         t_in, bar, cfg)
-    bar_flat = bar_chunks.reshape(-1, 64)
-    bar_rows = torch.randn_like(rows)
-    stages = {
-        "topology_with_reduce_plan": topology,
-        "rows64_from_model": lambda: rows64_from_model(model, cfg),
-        "rows64_backward": lambda: torch.autograd.grad(
-            rows, model.leaves(), bar_rows, retain_graph=True),
-        "gather_from_rows": lambda: binning.gather_from_rows(
-            rows.detach(), topo, cfg, "cuda"),
-        "tile_forward_residual": lambda: pf.tile_forward_residual(
-            chunks, rays, topo.tile_counts, cfg),
-        "tile_backward": lambda: pv.tile_backward(
-            chunks, rays, topo.tile_counts, t_in, bar, cfg),
-        "segment_reduce": lambda: sr.segment_reduce(bar_flat, topo.red,
-                                                    n_groups),
-        "train_step": step,
-    }
-    for name, fn in stages.items():
-        print(json.dumps({"stage": name, "ms": chip_smoke.cuda_ms(fn),
-                          "card": card}), flush=True)
-    profile(torch, card, step, "train_step")
+            out = r.render(model, camera())
+        out["rgb"].sum().item()   # the viewer waits for its image
+    return unit
 
 
-def pose_stages(torch, card, model, cam, cfg):
-    """Stage split of chip_smoke.py's pose step at full width."""
-    import chip_smoke
-    import gvrt_tpu_torch as gt
-    from gvrt_tpu_torch.render import pallas_forward as pf
-    from gvrt_tpu_torch.render import pallas_vjp as pv
-    from gvrt_tpu_torch.train import pose as tpose
+def training(gt, torch, chip_smoke, dev):
+    import numpy as np
+    cfg = gt.DEFAULT_CONFIG
+    w, h = chip_smoke.FULL_W, chip_smoke.FULL_H
+    model = chip_smoke.bench_scene(gt, torch, dev)
+    cam = gt.Camera.from_fovy(w, h, 50.0, np.eye(4))
+    cap = gt.render.TiledRenderer(w, h, cfg, device=dev).plan(model, [cam])
+    trainer = gt.train.Trainer(w, h, cfg, gt.train.TrainConfig(), cap,
+                               device=dev)
+    state = [trainer.init(model)]
+    batch = gt.parallel.camera_batch([cam], cfg, dev)
+    target = torch.full((1, h, w, 3), chip_smoke.TRAIN_TARGET, device=dev)
 
-    dev = model.device
+    def unit():
+        state[0], _ = trainer.step(state[0], batch, target)
+    return unit
+
+
+def garden(gt, torch, chip_smoke, dev):
+    cfg = gt.DEFAULT_CONFIG
+    w, h = chip_smoke.FULL_W, chip_smoke.FULL_H
+    model, cam = chip_smoke.garden_scene(gt, torch, dev)
+    model = model.sorted_for_camera(cam, cfg)
+    trainer = gt.train.Trainer(w, h, cfg, gt.train.TrainConfig(
+        span_bands=True), n_bands=chip_smoke.GARDEN_BANDS, device=dev)
+    state = [trainer.init(model)]
+    target = torch.full((h, w, 3), chip_smoke.TRAIN_TARGET, device=dev)
+
+    def unit():
+        state[0], _ = trainer.step(state[0], cam, target)
+    return unit
+
+
+def pose(gt, torch, chip_smoke, dev):
+    import numpy as np
+    cfg = gt.DEFAULT_CONFIG
+    w, h = chip_smoke.FULL_W, chip_smoke.FULL_H
+    model = chip_smoke.bench_scene(gt, torch, dev)
+    cam = gt.Camera.from_fovy(w, h, 50.0, np.eye(4))
     with torch.no_grad():
         target = gt.render.render_image_tiled(model, cam, cfg,
                                               device=dev)["rgb"]
     bad = gt.train.perturb_cameras([cam], chip_smoke.POSE_SIGMA, seed=0)[0]
-    bound = tpose.bind_pose(model, bad, target, cfg)
-    b, rcfg = bound.binned, bound.cfg
-    t = torch.zeros(3, device=dev, requires_grad=True)
-    r = torch.zeros(3, device=dev, requires_grad=True)
-    rays = tpose._posed_rays(bound.ndc, bad, rcfg, t, r)
-    bar_rays = torch.randn_like(rays)
-    with torch.no_grad():
-        acc, t_in = pf.tile_forward_residual(b.chunks, rays.detach(),
-                                             b.tile_counts, rcfg)
-        bar = torch.zeros_like(acc)
-        bar[:, 0:3] = 2.0 * (acc[:, 0:3] - bound.target) / \
-            bound.target.numel()
-    opt = torch.optim.Adam([t, r], lr=chip_smoke.POSE_LR, eps=1e-8)
+    steps = [1]
 
-    def step():
-        opt.zero_grad(set_to_none=True)
-        tpose.pose_loss(bound, t, r, "cuda").backward()
-        opt.step()
-
-    stages = {
-        "bind_pose": lambda: tpose.bind_pose(model, bad, target, cfg),
-        "posed_rays": lambda: tpose._posed_rays(bound.ndc, bad, rcfg,
-                                                t.detach(), r.detach()),
-        "posed_rays_backward": lambda: torch.autograd.grad(
-            rays, (t, r), bar_rays, retain_graph=True),
-        "tile_forward_residual": lambda: pf.tile_forward_residual(
-            b.chunks, rays.detach(), b.tile_counts, rcfg),
-        "tile_backward_ray_gradients": lambda: pv.tile_backward(
-            b.chunks, rays.detach(), b.tile_counts, t_in, bar, rcfg),
-        "pose_step": step,
-    }
-    for name, fn in stages.items():
-        print(json.dumps({"stage": name, "ms": chip_smoke.cuda_ms(fn),
-                          "card": card}), flush=True)
-    profile(torch, card, step, "pose_step")
-
-
-def garden_stages(torch, card, dev):
-    """Stage split of chip_smoke.py's garden-scale banded training step."""
-    import chip_smoke
-    import gvrt_tpu_torch as gt
-    from gvrt_tpu_torch.render import binning
-    from gvrt_tpu_torch.render import pallas_forward as pf
-    from gvrt_tpu_torch.render import pallas_vjp as pv
-    from gvrt_tpu_torch.render import param_grads as pg
-    from gvrt_tpu_torch.render import segreduce as sr
-    from gvrt_tpu_torch.render.rows_vjp import rows64_from_model
-
-    cfg = gt.DEFAULT_CONFIG
-    w, h, nb = chip_smoke.FULL_W, chip_smoke.FULL_H, chip_smoke.GARDEN_BANDS
-    model, cam = chip_smoke.garden_scene(gt, torch, dev)
-    model = model.sorted_for_camera(cam, cfg)
-    trainer = gt.train.Trainer(w, h, cfg, gt.train.TrainConfig(
-        span_bands=True), n_bands=nb, device=dev)
-    topos = trainer.bind(model, cam)
-    state = trainer.init(model)
-    target = torch.full((h, w, 3), chip_smoke.TRAIN_TARGET, device=dev)
-    rays = binning.band_rays(cam, cfg, nb, dev, mode="contig")
-    rows = rows64_from_model(model, cfg)
-    stages = {
-        "rows64_from_model": lambda: rows64_from_model(model, cfg),
-        "rows64_backward": lambda: torch.autograd.grad(
-            rows, model.leaves(), torch.ones_like(rows), retain_graph=True),
-    }
-    for b, topo in enumerate(topos):
-        with torch.no_grad():
-            chunks = binning.gather_from_rows(rows, topo, cfg, "cuda")
-            acc, t_in = pf.tile_forward_residual(chunks, rays[b],
-                                                 topo.tile_counts, cfg)
-            bar = torch.zeros_like(acc)
-            bar[:, 0:3] = torch.sign(acc[:, 0:3] - 0.3) / (w * h * 3)
-            bar_flat = pv.tile_backward(chunks, rays[b], topo.tile_counts,
-                                        t_in, bar, cfg)[0].reshape(-1, 64)
-        n_groups = topo.red.out_shape.shape[0]
-        stages.update({
-            f"band{b}_gather": lambda topo=topo: binning.gather_from_rows(
-                rows.detach(), topo, cfg, "cuda"),
-            f"band{b}_tile_forward_residual": lambda b=b, c=chunks, t=topo:
-                pf.tile_forward_residual(c, rays[b], t.tile_counts, cfg),
-            f"band{b}_tile_backward": lambda b=b, c=chunks, t=topo, ti=t_in,
-                ba=bar: pv.tile_backward(c, rays[b], t.tile_counts, ti, ba,
-                                         cfg),
-            f"band{b}_segment_reduce_compact": lambda f=bar_flat, t=topo,
-                n=n_groups: sr.segment_reduce_compact(f, t.red, n),
-            f"band{b}_compact_table": lambda f=bar_flat, t=topo:
-                pg._bwd_segreduce_compact(rows.shape[0], t.red, f, "cuda"),
-            f"band{b}_compact_two_step": lambda f=bar_flat, t=topo,
-                n=n_groups: sr.expand_compact(sr.segment_reduce_compact(
-                    f, t.red, n), t.red, rows.shape[0]),
-        })
-
-    def adam():
-        for p in model.leaves():
-            p.grad = torch.zeros_like(p)
-        state[1].step()
-
-    def step():
-        trainer.step(state, cam, target)
-
-    stages.update({"adam_step": adam, "trainer_step": step})
-    for name, fn in stages.items():
-        print(json.dumps({"stage": name, "ms": chip_smoke.cuda_ms(fn),
-                          "card": card}), flush=True)
-    print(json.dumps({"peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-                      "card": card}), flush=True)
-    profile(torch, card, step, "garden_trainer_step")
+    def unit():
+        # one refinement of `steps` pose steps (the bind, then the steps)
+        gt.train.optimize_camera_poses(model, [bad], [target], cfg,
+                                       steps=steps[0], verbose=False)
+    return unit, steps
 
 
 def main():
-    import numpy as np
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    path = p.add_mutually_exclusive_group()
+    path.add_argument("--train", action="store_true")
+    path.add_argument("--garden", action="store_true")
+    path.add_argument("--pose", action="store_true")
+    p.add_argument("--units", type=int, default=0,
+                   help="frames or steps traced (default 8 frames, 20 "
+                        "steps, 12 garden steps, 20 pose steps)")
+    p.add_argument("--out", default="", help="directory of the trace")
+    args = p.parse_args()
     import torch
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
     import chip_smoke
     import gvrt_tpu_torch as gt
-    from gvrt_tpu_torch.render import binning
-    from gvrt_tpu_torch.render import pallas_forward as pf
-    from gvrt_tpu_torch.render.tiled import TiledRenderer, _camera_mats
+    from gvrt_tpu_torch.utils import profiling
 
     card = chip_smoke.card_line()
-    print(card, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
+    print(json.dumps({"card": card}), flush=True)
     dev = torch.device("cuda", torch.cuda.current_device())
-    if "--garden" in sys.argv[1:]:
-        return garden_stages(torch, card, dev)
-    cfg = gt.DEFAULT_CONFIG
-    w, h = chip_smoke.FULL_W, chip_smoke.FULL_H
-    model = chip_smoke.bench_scene(gt, torch, dev)
-    cam = gt.Camera.from_fovy(w, h, 50.0, np.eye(4))
-    if "--train" in sys.argv[1:]:
-        return train_stages(torch, card, model, cam, cfg)
-    if "--pose" in sys.argv[1:]:
-        return pose_stages(torch, card, model, cam, cfg)
-    r = TiledRenderer(w, h, cfg, device=dev)
-    r.plan(model, [cam])
-    w2c, proj = _camera_mats(cam)
-    rays = r._rays(cam)
-
-    with torch.no_grad():
-        act = model.activate()
-        tab = binning.frame_cull_table(act, w2c, proj, w, h, cfg)
-        # a serving frame builds no gradient-reduce plan
-        topo = binning.bin_topology_from_table(tab, proj, w, h, cfg,
-                                               *r.capacity,
-                                               with_reduce_plan=False)
-        rows = binning.param_rows(act, cfg)
-        chunks = binning.gather_from_rows(rows, topo, cfg)
-        acc = pf.tile_forward(chunks, rays, topo.tile_counts, cfg)
-        stages = {
-            "activate": lambda: model.activate(),
-            "frame_cull_table": lambda: binning.frame_cull_table(
-                act, w2c, proj, w, h, cfg),
-            "bin_topology_from_table": lambda: binning.bin_topology_from_table(
-                tab, proj, w, h, cfg, *r.capacity, with_reduce_plan=False),
-            "param_rows": lambda: binning.param_rows(act, cfg),
-            "gather_from_rows": lambda: binning.gather_from_rows(rows, topo,
-                                                                 cfg),
-            "tile_forward": lambda: pf.tile_forward(chunks, rays,
-                                                    topo.tile_counts, cfg),
-            "untile": lambda: binning.untile(acc, w, h, cfg.tile_size)
-            .contiguous(),
-            "render": lambda: r.render(model, cam),
-        }
-        for name, fn in stages.items():
-            print(json.dumps({"stage": name, "ms": chip_smoke.cuda_ms(fn),
-                              "card": card}), flush=True)
-
-        profile(torch, card, lambda: r.render(model, cam), "render")
+    name = ("train" if args.train else "garden" if args.garden else
+            "pose" if args.pose else "serve")
+    logdir = args.out or os.path.join(ROOT, "chiprun_out", "frame_profile",
+                                      name)
+    if args.pose:
+        unit, steps = pose(gt, torch, chip_smoke, dev)
+        unit()   # warm-up: builds the kernels
+        steps[0], runs = args.units or 20, 1
+    else:
+        make = {"serve": serving, "train": training, "garden": garden}[name]
+        unit = make(gt, torch, chip_smoke, dev)
+        for _ in range(2):   # warm-up: builds the kernels, binds
+            unit()
+        runs = args.units or {"serve": 8, "train": 20, "garden": 12}[name]
+    torch.cuda.synchronize()
+    with profiling.trace(logdir):
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            unit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report(logdir, wall, card)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,375 @@
+"""The port's spans and counters (`utils/profiling.py`): what a frame and
+a training step record, on the CPU, and on the card the host-sync counter
+against PyTorch's own sync debug mode.
+
+The CPU tests build small scenes with `gt.random_gaussians` (no JAX), so
+the file also runs where JAX is not installed; the card test is marked
+`cuda` and skips without a card:
+
+    python -m pytest tests/test_torch_tracing.py -q --noconftest \
+        -p no:cacheprovider
+"""
+
+import json
+import os
+import sys
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import gvrt_tpu_torch as gt  # noqa: E402
+from gvrt_tpu_torch.utils import profiling  # noqa: E402
+
+RES = 32
+CFG = gt.DEFAULT_CONFIG.replace(tile_size=8, chunk_size=64)
+FRAME_SPANS = ("gvrt.rays", "gvrt.binning", "gvrt.param_table",
+               "gvrt.gather", "gvrt.composite")
+BINNING_STAGES = ("gvrt.binning.cull", "gvrt.binning.expand",
+                  "gvrt.binning.sort", "gvrt.binning.layout")
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def empty_record():
+    profiling.reset()
+    yield
+    profiling.reset()
+
+
+def _scene(device, n=300, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    model = gt.random_gaussians(g, n, extent=0.6, device=device)
+    with torch.no_grad():
+        model.means[:, 2] -= 3.0
+    return model
+
+
+def _camera(dx=0.0):
+    c2w = np.eye(4)
+    c2w[0, 3] = dx
+    return gt.Camera.from_fovy(RES, RES, 60.0, c2w)
+
+
+def _frame(device):
+    """A planned renderer, the model and a camera; the frame renders."""
+    model = _scene(device)
+    r = gt.render.TiledRenderer(RES, RES, CFG, device=device)
+    cam = _camera()
+    r.plan(model, [cam])
+    return r, model, cam
+
+
+def _unbanded(device):
+    """A step closure of the unbanded trainer (one camera a step)."""
+    model = _scene(device, seed=1)
+    cam = _camera(0.02)
+    planner = gt.render.TiledRenderer(RES, RES, CFG, device=device)
+    trainer = gt.train.Trainer(RES, RES, CFG, gt.train.TrainConfig(),
+                               planner.plan(model, [cam]), device=device)
+    state = [trainer.init(model)]
+    batch = gt.parallel.camera_batch([cam], CFG, device)
+    target = torch.rand((1, RES, RES, 3), generator=torch.Generator(
+        device=device).manual_seed(2), device=device)
+
+    def step():
+        state[0], _ = trainer.step(state[0], batch, target)
+    return step
+
+
+def _banded(device):
+    """A step closure of the banded trainer: 2 span bands, remat "full";
+    its first step binds."""
+    model = _scene(device, seed=3)
+    cam = _camera(-0.02)
+    model = model.sorted_for_camera(cam, CFG)
+    tc = gt.train.TrainConfig(span_bands=True, banded_remat="full")
+    trainer = gt.train.Trainer(RES, RES, CFG, tc, n_bands=2, device=device)
+    state = [trainer.init(model)]
+    target = torch.rand((RES, RES, 3), generator=torch.Generator(
+        device=device).manual_seed(4), device=device)
+
+    def step():
+        state[0], _ = trainer.step(state[0], cam, target)
+    return step
+
+
+def _log():
+    """Every span closed since the last reset, in closing order: (name,
+    the parent's name or None, unit, host ms)."""
+    closed = list(profiling._closed)
+    names = {sid: name for name, sid, *_ in closed}
+    return [(name, names.get(parent), unit, 1e3 * (t1 - t0))
+            for name, _, parent, unit, t0, t1, _, _ in closed]
+
+
+def _parents(log, name):
+    return {p for n, p, _, _ in log if n == name}
+
+
+def test_off_records_nothing():
+    r, model, cam = _frame("cpu")
+    with torch.no_grad():
+        r.render(model, cam)
+    _unbanded("cpu")()
+    _banded("cpu")()
+    assert not torch.autograd.profiler._is_profiler_enabled
+    assert profiling.recorded() == {"spans": {}, "counts": {}, "units": {}}
+    assert _log() == []
+
+
+def test_frame_spans_parents_and_units():
+    r, model, cam = _frame("cpu")
+    with torch.profiler.profile():
+        assert torch.autograd.profiler._is_profiler_enabled
+        with torch.no_grad():
+            r.render(model, cam)
+            r.render(model, _camera(0.01))
+    rec, log = profiling.recorded(), _log()
+    assert rec["units"] == {"gvrt.frame": 2}
+    assert rec["spans"]["gvrt.frame"]["calls"] == 2
+    assert _parents(log, "gvrt.frame") == {None}
+    for name in FRAME_SPANS:
+        assert _parents(log, name) == {"gvrt.frame"}, name
+        # the parameter table twice a frame: the activation, the rows
+        calls = 4 if name == "gvrt.param_table" else 2
+        assert rec["spans"][name]["calls"] == calls, name
+    for name in BINNING_STAGES:
+        assert _parents(log, name) == {"gvrt.binning"}, name
+    # no grad: no reduce plan
+    assert "gvrt.binning.reduce_plan" not in rec["spans"]
+    for name in ("gvrt.rays.numpy", "gvrt.rays.upload", "gvrt.rays.rows"):
+        assert _parents(log, name) == {"gvrt.rays"}, name
+    # each span's unit is the frame it ran in
+    units = {}
+    for name, _, unit, _ in log:
+        units.setdefault(name, []).append(unit)
+    for name in FRAME_SPANS + BINNING_STAGES + ("gvrt.frame",):
+        assert set(units[name]) == {1, 2}, name
+        assert units[name].count(1) == units[name].count(2), name
+    assert rec["counts"]["gvrt.pairs"] > 0
+    assert rec["counts"].get("gvrt.host_syncs", 0) == 0   # the CPU's
+    assert all(row["device_ms"] is None for row in rec["spans"].values())
+
+
+def test_self_time_is_duration_less_children():
+    r, model, cam = _frame("cpu")
+    with torch.profiler.profile():
+        with torch.no_grad():
+            r.render(model, cam)
+    rec, log = profiling.recorded(), _log()
+    for name in ("gvrt.frame", "gvrt.binning", "gvrt.rays"):
+        row = rec["spans"][name]
+        inner = sum(ms for _, p, _, ms in log if p == name)
+        assert inner > 0, name
+        assert row["self_host_ms"] == pytest.approx(row["host_ms"] - inner,
+                                                    abs=1e-6), name
+        assert 0 < row["self_host_ms"] < row["host_ms"]
+    leaf = rec["spans"]["gvrt.binning.sort"]
+    assert leaf["self_host_ms"] == pytest.approx(leaf["host_ms"])
+
+
+def test_ray_cache_counters():
+    r, model, cam = _frame("cpu")
+    with torch.profiler.profile():
+        with torch.no_grad():
+            r.render(model, cam)
+            r.render(model, cam)
+    counts = profiling.recorded()["counts"]
+    assert counts["gvrt.rays.built"] == 1
+    assert counts["gvrt.rays.cache_hit"] == 1
+    assert profiling.recorded()["spans"]["gvrt.rays"]["calls"] == 1
+
+
+@pytest.mark.parametrize("path", ("unbanded", "banded"))
+def test_step_spans_and_parents(path):
+    step = (_unbanded if path == "unbanded" else _banded)("cpu")
+    with torch.profiler.profile():
+        step()
+    rec, log = profiling.recorded(), _log()
+    assert rec["units"] == {"gvrt.step": 1}
+    assert {u for _, _, u, _ in log} == {1}
+    for name in ("gvrt.loss", "gvrt.backward", "gvrt.optimizer"):
+        assert _parents(log, name) == {"gvrt.step"}, name
+    for name in ("gvrt.composite.bwd", "gvrt.gather.bwd"):
+        assert _parents(log, name) == {"gvrt.backward"}, name
+    assert rec["counts"].get("gvrt.host_syncs", 0) == 0
+    if path == "unbanded":
+        for name in ("gvrt.binning", "gvrt.param_table", "gvrt.gather",
+                     "gvrt.composite"):
+            assert _parents(log, name) == {"gvrt.step"}, name
+        assert _parents(log, "gvrt.binning.reduce_plan") == {"gvrt.binning"}
+        assert "gvrt.rays" not in rec["spans"]   # the batch holds its rays
+        # autograd's backward of the table, from the rows to the leaves
+        assert _parents(log, "gvrt.param_table.bwd") == {"gvrt.backward"}
+        assert rec["spans"]["gvrt.param_table.bwd"]["calls"] == 1
+        return
+    # banded: the first step binds; "full" remat gathers and composites
+    # again inside the backward
+    assert _parents(log, "gvrt.bind") == {"gvrt.step"}
+    assert rec["spans"]["gvrt.bind"]["calls"] == 1   # Trainer's and the
+    for name in ("gvrt.plan", "gvrt.rays", "gvrt.binning"):  # renderer's
+        assert _parents(log, name) == {"gvrt.bind"}, name
+    assert rec["spans"]["gvrt.binning"]["calls"] == 2   # one a band
+    assert _parents(log, "gvrt.binning.reduce_plan") == {"gvrt.binning"}
+    # the table, and the activation that the plan's and the bind's cull
+    # tables read
+    assert _parents(log, "gvrt.param_table") == {"gvrt.step", "gvrt.plan",
+                                                 "gvrt.bind"}
+    assert _parents(log, "gvrt.param_table.bwd") == {"gvrt.backward"}
+    for name in ("gvrt.gather", "gvrt.composite"):
+        assert _parents(log, name) == {"gvrt.step", "gvrt.backward"}, name
+        assert rec["spans"][name]["calls"] == 4, name
+
+
+def test_span_is_a_decorator_and_a_context_manager():
+    @profiling.span("t.outer")
+    def outer():
+        with profiling.span("t.inner"):
+            with profiling.span("t.inner"):   # counts once
+                profiling.count("t.n", torch.tensor(2))
+                profiling.count("t.n")
+        return 7
+
+    assert outer() == 7
+    assert profiling.recorded()["spans"] == {}
+    with torch.profiler.profile():
+        assert outer() == 7
+    rec = profiling.recorded()
+    assert rec["spans"]["t.inner"]["calls"] == 1
+    assert rec["counts"] == {"t.n": 3}
+    assert rec["units"] == {"t.outer": 1}
+    assert _log()[0][:3] == ("t.inner", "t.outer", 1)
+
+
+def test_backward_bracket():
+    """`open_in_backward` and `close_in_backward` hold a stretch of
+    autograd's backward in one span; one left open closes with its
+    backward; the gradients are those without them."""
+    x = torch.rand(5, requires_grad=True)
+
+    def grads(bracket: str):
+        x.grad = None
+        with profiling.span("t.step"):
+            (y,) = (profiling.close_in_backward("t.bwd", x)
+                    if bracket == "both" else (x,))
+            z = profiling.open_in_backward("t.bwd", y.exp() * 2)
+            with profiling.span("t.backward"):
+                (z * z).sum().backward()
+        return x.grad.clone()
+
+    off = grads("both")
+    with torch.profiler.profile():
+        both, opened = grads("both"), grads("open")
+    assert torch.equal(off, both) and torch.equal(off, opened)
+    rec, log = profiling.recorded(), _log()
+    assert rec["units"] == {"t.step": 2}
+    assert rec["spans"]["t.bwd"]["calls"] == 2
+    assert _parents(log, "t.bwd") == {"t.backward"}
+    assert [n for n, p, _, _ in log if p is None] == ["t.step", "t.step"]
+    assert not getattr(profiling._local, "stack", [])
+    assert profiling.close_in_backward("t.bwd", x)[0] is x   # off
+
+
+@pytest.mark.parametrize("mode", (0, 1))
+def test_sync_watch_counts_and_passes_on(monkeypatch, mode):
+    """A root span's watch turns sync debug mode on where it was off,
+    counts its warnings into the host-sync counter and passes every other
+    warning on, and these too where the mode was on already."""
+    modes = [mode]
+    monkeypatch.setattr(torch.cuda, "get_sync_debug_mode", lambda: modes[0])
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode",
+                        lambda m: modes.__setitem__(0, m))
+    with torch.profiler.profile():
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            watch = profiling._SyncWatch()
+            assert modes[0] == 1
+            for _ in range(2):
+                warnings.warn("called a synchronizing CUDA operation")
+            warnings.warn("another warning")
+            watch.close()
+    assert modes[0] == mode
+    assert profiling.recorded()["counts"] == {profiling.HOST_SYNCS: 2}
+    passed = sorted(str(w.message) for w in seen)
+    assert passed == (["another warning"] if mode == 0 else [
+        "another warning"] + 2 * ["called a synchronizing CUDA operation"])
+
+
+def test_trace_writes_the_span_table(tmp_path):
+    r, model, cam = _frame("cpu")
+    logdir = str(tmp_path / "prof")
+    with profiling.trace(logdir):
+        with torch.no_grad():
+            r.render(model, cam)
+    with open(os.path.join(logdir, "trace.json")) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert {"gvrt.frame", "gvrt.binning", "gvrt.rays.numpy"} <= names
+    with open(os.path.join(logdir, "span_table.json")) as f:
+        table = json.load(f)
+    assert table["units"] == {"gvrt.frame": 1}
+    assert table["spans"]["gvrt.composite"]["calls"] == 1
+    assert table["counts"]["gvrt.rays.built"] == 1
+
+
+# ---- on the card -------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the tile kernels have no CPU mode")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _syncs(fn):
+    """(the host-sync counter, the synchronizing calls that sync debug
+    mode warns of, their places) over one call of `fn` under the
+    profiler."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        profiling.reset()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode(1)
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    synced = [w for w in caught
+              if "called a synchronizing CUDA operation" in str(w.message)]
+    counted = profiling.recorded()["counts"].get(profiling.HOST_SYNCS, 0)
+    return counted, len(synced), sorted(
+        f"{os.path.basename(w.filename)}:{w.lineno}" for w in synced)
+
+
+@pytest.mark.cuda
+def test_host_syncs_match_sync_debug_mode(cuda):
+    r, model, cam = _frame(cuda)
+    unbanded, banded = _unbanded(cuda), _banded(cuda)
+    with torch.no_grad():
+        r.render(model, _camera(0.03))   # builds K1
+    unbanded()
+
+    def frame():
+        with torch.no_grad():
+            r.render(model, cam)
+
+    got = {name: _syncs(fn) for name, fn in (
+        ("frame", frame), ("unbanded step", unbanded),
+        ("banded step (binds)", banded), ("banded step (held)", banded))}
+    for name, (counted, warned, where) in got.items():
+        assert warned > 0, name
+        assert counted == warned, (name, counted, where)
