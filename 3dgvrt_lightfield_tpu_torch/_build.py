@@ -43,6 +43,10 @@ SIGNATURES = {
         "gvrt_segment_reduce": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
                                 ctypes.c_int),
     },
+    "camera_rays": {
+        "gvrt_camera_rays": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+                             ctypes.c_int),
+    },
     "segment_reduce_compact": {
         "gvrt_segment_reduce_compact": ([_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                          _P], ctypes.c_int),

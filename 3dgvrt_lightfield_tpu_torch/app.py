@@ -503,7 +503,8 @@ def _train(args, mesh=None):
             state, loss = trainer.step(
                 state, cams[i], torch.as_tensor(targets[i], device=dev))
         else:
-            batch = camera_batch([cams[i] for i in idx], DEFAULT_CONFIG, dev)
+            batch = camera_batch([cams[i] for i in idx], DEFAULT_CONFIG, dev,
+                                 impl=args.impl)
             tgt = torch.stack([torch.as_tensor(targets[i], device=dev)
                                for i in idx])
             state, loss = trainer.step(state, batch, tgt)

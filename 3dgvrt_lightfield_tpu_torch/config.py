@@ -3,7 +3,8 @@
 Same constants and `RenderConfig` fields as the JAX package's `config.py`,
 so a test can hand one configuration to both packages and compare like with
 like.  `resolve_device` is the port's one rule for where an entry point runs:
-on the card unless the caller asks for the CPU by name.
+on the card unless the caller asks for the CPU by name; `resolve_impl` the
+one rule for whether a kernel or its plain version runs there.
 """
 
 from __future__ import annotations
@@ -93,3 +94,19 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:  # "cuda" means the current card, by index
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+IMPLS = ("cuda", "torch")
+
+
+def resolve_impl(impl: str, device: torch.device) -> str:
+    """"auto" -> "cuda" on a CUDA device, "torch" (the plain version) on the
+    CPU.  "cuda" needs a CUDA device; "torch" on CUDA is taken only when
+    asked for by name."""
+    if impl == "auto":
+        return "cuda" if device.type == "cuda" else "torch"
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected auto|cuda|torch")
+    if impl == "cuda" and device.type != "cuda":
+        raise ValueError(f"impl='cuda' needs a CUDA device, got {device}")
+    return impl

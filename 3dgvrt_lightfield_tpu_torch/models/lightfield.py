@@ -101,7 +101,7 @@ def compute_light_field(model: GaussianModel,
             cap = max(cap, c)
         nt = (lf.width // lf.tile_size) * (lf.height // lf.tile_size)
         cap_pad = cap + (nt + 1) * render_cfg.chunk_size
-        batch = camera_batch(cams, render_cfg, mesh.device)
+        batch = camera_batch(cams, render_cfg, mesh.device, impl=impl)
         imgs = render_batch_sharded(model, batch, mesh, lf.width, lf.height,
                                     render_cfg, cap, cap_pad, impl=impl)
         images = imgs[..., 0:3].cpu().numpy()

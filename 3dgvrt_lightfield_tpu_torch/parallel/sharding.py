@@ -179,14 +179,14 @@ class CameraBatch(NamedTuple):
 
 @span("gvrt.rays")
 def camera_batch(cameras: Sequence, cfg: RenderConfig,
-                 device=None) -> CameraBatch:
+                 device=None, impl: str = "auto") -> CameraBatch:
     """Stack the cameras' matrices and tiled rays (rays on `device`, the
-    card unless ``device="cpu"``)."""
+    card unless ``device="cpu"``; `impl` as `binning.tile_rays`)."""
     dev = resolve_device(device)
     mats = [_camera_mats(cam) for cam in cameras]
     return CameraBatch(np.stack([m[0] for m in mats]),
                        np.stack([m[1] for m in mats]),
-                       torch.stack([tile_rays(cam, cfg, dev)
+                       torch.stack([tile_rays(cam, cfg, dev, impl=impl)
                                     for cam in cameras]))
 
 
@@ -296,7 +296,8 @@ def render_image_tile_sharded(model: GaussianModel, camera, mesh: Mesh,
     if capacity is None:
         capacity = plan_capacity_sharded(model, camera, d, cfg)
     cap, cap_pad = capacity
-    rays = band_rays(camera, cfg, d, mesh.device)[mesh.index].contiguous()
+    rays = band_rays(camera, cfg, d, mesh.device,
+                     impl=impl)[mesh.index].contiguous()
     with torch.no_grad():
         topo = bin_topology(act, w2c, proj, width, height, cfg, cap, cap_pad,
                             row_offset=mesh.index, row_stride=d,

@@ -330,10 +330,10 @@ class BandedRenderer:
             topos = self._build_topos(model, camera)
         if self.balance:
             rays = band_rays_split(camera, self.cfg, self.band_specs,
-                                   self.device)
+                                   self.device, impl=self.impl)
         else:
             rays = band_rays(camera, self.cfg, self.n_bands, self.device,
-                             mode=self.mode)
+                             mode=self.mode, impl=self.impl)
         self._bound = (topos, rays)
         return topos
 
@@ -391,7 +391,7 @@ def render_image_banded(model: GaussianModel, camera, n_bands: int,
                 row_offset=off, row_stride=stride, row_count=count,
                 capacity_reduce=cap_r, capacity_live=cap_live,
                 capacity_range=cap_range, with_reduce_plan=grad))
-    rays = band_rays(camera, cfg, n_bands, dev, mode=mode)
+    rays = band_rays(camera, cfg, n_bands, dev, mode=mode, impl=impl)
     img, overflow = _render_banded_bound(model, topos, rays, width, height,
                                          cfg, impl, remat="full", mode=mode)
     return _outputs(img, overflow)

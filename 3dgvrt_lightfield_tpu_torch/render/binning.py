@@ -28,17 +28,24 @@ them from the measured survivors.
 Banding restricts binning to a subset of tile rows, round-robin (`stride`)
 or contiguous (`contig`); `band_rays`, `plan_row_split`, `band_rays_split`
 and `unband_image` cut the rays and reassemble the image to match.
+
+The camera rays (`tile_rays`) are made on the card by one kernel,
+`csrc/camera_rays.cu` (`camera_rays_kernel`), straight in the tile layout;
+on the CPU by their plain version, `Camera.rays` in NumPy and
+`tile_ray_rows` in PyTorch.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..config import SH_MAX_NUM_COEFFS, RenderConfig
+from .. import _build
+from ..config import SH_MAX_NUM_COEFFS, RenderConfig, resolve_impl
 from ..ops.aabb import intersect_aabb
 from ..ops.kernels import kernel_scale
 from ..ops.sh import sh_basis_components
@@ -655,7 +662,7 @@ def plan_capacity(act: ActivatedGaussians, w2c, proj, width, height,
 
 @span("gvrt.rays")
 def tile_rays(camera, cfg: RenderConfig, device, aabb=None,
-              tmax_clip=None) -> torch.Tensor:
+              tmax_clip=None, impl: str = "auto") -> torch.Tensor:
     """Per-pixel rays + AABB clip range + SH basis, tiled to (T, 24, R).
 
     Rows 0:8 are [o, d, tmin, tmax]; rows 8:24 are the 16 SH basis values of
@@ -663,7 +670,14 @@ def tile_rays(camera, cfg: RenderConfig, device, aabb=None,
     re-evaluates the basis polynomials per chunk.  The clip box is `aabb`,
     else cfg.aabb.  `tmax_clip` (H, W), optional, caps each ray's march
     distance (combined Gaussian and mesh scenes: an opaque surface ends the
-    march)."""
+    march).  `impl` as `resolve_impl` reads it for `device`: "cuda" makes
+    the rays in one launch of `camera_rays_kernel`, "torch" with NumPy on
+    the host, copied to `device` and tiled by `tile_ray_rows`."""
+    device = torch.device(device)
+    if resolve_impl(impl, device) == "cuda":
+        with span("gvrt.rays.kernel"):
+            count("gvrt.rays.kernel")
+            return camera_rays_kernel(camera, cfg, device, aabb, tmax_clip)
     with span("gvrt.rays.numpy"):
         o, d = camera.rays()
     with span("gvrt.rays.upload"):
@@ -694,6 +708,48 @@ def tile_ray_rows(o: torch.Tensor, d: torch.Tensor, cfg: RenderConfig,
     return tiled.permute(0, 2, 4, 1, 3).reshape(-1, RAY_ROWS, ts * ts).contiguous()
 
 
+def camera_rays_kernel(camera, cfg: RenderConfig, device, aabb=None,
+                       tmax_clip=None) -> torch.Tensor:
+    """`tile_ray_rows(*camera.rays())` on CUDA in one launch of
+    `csrc/camera_rays.cu`: the (T, 24, R) f32 rays written straight from
+    the camera's matrices, which travel by value, as does the clip box.  It
+    launches on the current stream (no synchronisation) and adds one to
+    `camera_rays_kernel.launches`.  Rows equal the plain version's bit for
+    bit on every ray whose direction does; a direction may differ from
+    NumPy's by one f32 ulp on rare rays (the f64 sums' order)."""
+    if device.type != "cuda":
+        raise ValueError(f"camera_rays_kernel runs on CUDA, not {device}")
+    ts, w, h = cfg.tile_size, camera.width, camera.height
+    if w % ts or h % ts:
+        raise ValueError(f"{w}x{h} is not a multiple of the tile size {ts}")
+    clip = None
+    if tmax_clip is not None:
+        clip = torch.as_tensor(tmax_clip, dtype=torch.float32,
+                               device=device).contiguous()
+        if clip.shape != (h, w):
+            raise ValueError(f"tmax_clip is {tuple(clip.shape)}, the camera "
+                             f"{h}x{w}")
+    mats = [np.ascontiguousarray(m, np.float64).reshape(16)
+            for m in (camera.proj_inverse, camera.view_inverse)]
+    box = (ctypes.c_float * 6)(*(aabb or cfg.aabb))
+    out = torch.empty(((h // ts) * (w // ts), RAY_ROWS, ts * ts),
+                      dtype=torch.float32, device=device)
+    lib = _build.load("camera_rays")
+    with torch.cuda.device(device):
+        err = lib.gvrt_camera_rays(
+            mats[0].ctypes.data, mats[1].ctypes.data, box,
+            None if clip is None else clip.data_ptr(), out.data_ptr(), w, h,
+            ts, cfg.sh_degree, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"camera_rays kernel launch failed: CUDA error "
+                           f"{err}")
+    camera_rays_kernel.launches += 1
+    return out
+
+
+camera_rays_kernel.launches = 0
+
+
 def untile(img_tiled: torch.Tensor, width: int, height: int, ts: int):
     """(num_tiles, C, R) -> (H, W, C)."""
     ny, nx = height // ts, width // ts
@@ -704,14 +760,15 @@ def untile(img_tiled: torch.Tensor, width: int, height: int, ts: int):
 
 @span("gvrt.rays")
 def band_rays(camera, cfg: RenderConfig, stride: int, device,
-              mode: str = "stride", aabb=None) -> torch.Tensor:
+              mode: str = "stride", aabb=None,
+              impl: str = "auto") -> torch.Tensor:
     """Tiled rays split into `stride` tile-row bands: (stride, local_tiles,
     RAY_ROWS, R).  mode="stride": band d owns the global tile rows d,
     d + stride, ...; mode="contig": the contiguous rows
     [d * ny / stride, (d + 1) * ny / stride) (span banding).  The clip box
-    is `aabb`, else cfg.aabb."""
+    is `aabb`, else cfg.aabb; `impl` as `tile_rays`."""
     ts = cfg.tile_size
-    rays = tile_rays(camera, cfg, device, aabb)       # (ny*nx, 24, R)
+    rays = tile_rays(camera, cfg, device, aabb, impl=impl)  # (ny*nx, 24, R)
     ny, nx = camera.height // ts, camera.width // ts
     assert ny % stride == 0, (ny, stride)
     if mode == "contig":
@@ -743,10 +800,11 @@ def plan_row_split(tab: FrameCullTable, proj, width, height,
 
 
 @span("gvrt.rays")
-def band_rays_split(camera, cfg: RenderConfig, specs, device):
+def band_rays_split(camera, cfg: RenderConfig, specs, device,
+                    impl: str = "auto"):
     """Per-band ray arrays of a variable (offset, count) row split: a tuple
-    of (count * nx, RAY_ROWS, R) tensors."""
-    rays = tile_rays(camera, cfg, device)             # (ny*nx, 24, R)
+    of (count * nx, RAY_ROWS, R) tensors; `impl` as `tile_rays`."""
+    rays = tile_rays(camera, cfg, device, impl=impl)  # (ny*nx, 24, R)
     nx = camera.width // cfg.tile_size
     return tuple(rays[off * nx:(off + count) * nx] for off, count in specs)
 

@@ -183,7 +183,7 @@ def render_combined(model: GaussianModel, scene: MeshScene, camera,
         w2c, proj = _camera_mats(camera)
         if capacity is None:
             capacity = plan_capacity(act, w2c, proj, width, height, cfg)
-        rays = tile_rays(camera, cfg, device, tmax_clip=t_mesh)
+        rays = tile_rays(camera, cfg, device, tmax_clip=t_mesh, impl=impl)
     binned = bin_gaussians(act, w2c, proj, width, height, cfg, *capacity)
     acc = forward_dispatch(binned, rays, cfg, impl)
     img = untile(acc, width, height, cfg.tile_size)

@@ -27,13 +27,13 @@ import math
 import torch
 
 from .. import _build
-from ..config import RenderConfig
+from ..config import IMPLS, RenderConfig
+from ..config import resolve_impl  # noqa: F401  (its callers import it here)
 from ..ops.kernels import gray_cutoff
 from ..utils.profiling import span
 from .binning import BinnedScene
 from .tile_math import ACC_T, BACKGROUND, RAY_ROWS, chunk_update, init_acc
 
-IMPLS = ("cuda", "torch")
 #: (gaussian, ray) pairs per step of the plain version, 1024 tiles at the
 #: defaults (G = 64, R = 256): keeps its (B, G, R) temporaries at a few GB
 _PAIR_BATCH = 1024 * 64 * 256
@@ -43,19 +43,6 @@ def tile_batch(g: int, r: int) -> int:
     """Tiles per step of the plain versions at G gaussians per chunk and R
     rays per tile."""
     return max(1, _PAIR_BATCH // (g * r))
-
-
-def resolve_impl(impl: str, device: torch.device) -> str:
-    """"auto" -> "cuda" on a CUDA device, "torch" (the plain version) on the
-    CPU.  "cuda" needs a CUDA device; "torch" on CUDA is taken only when
-    asked for by name."""
-    if impl == "auto":
-        return "cuda" if device.type == "cuda" else "torch"
-    if impl not in IMPLS:
-        raise ValueError(f"unknown impl {impl!r}; expected auto|cuda|torch")
-    if impl == "cuda" and device.type != "cuda":
-        raise ValueError(f"impl='cuda' needs a CUDA device, got {device}")
-    return impl
 
 
 def tile_chunk_runs(tile_counts: torch.Tensor, num_chunks: int, g: int):

@@ -137,7 +137,8 @@ class TiledRenderer:
             count("gvrt.rays.built")
             if len(self._ray_cache) > 64:
                 self._ray_cache.clear()
-            self._ray_cache[key] = tile_rays(camera, self.cfg, self.device)
+            self._ray_cache[key] = tile_rays(camera, self.cfg, self.device,
+                                             impl=self.impl)
         else:
             count("gvrt.rays.cache_hit")
         return self._ray_cache[key]

@@ -7,9 +7,16 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
-  1. set-up: the card's name and power limit, TF32 off, the four kernel
-     libraries (tile_forward, tile_backward, segment_reduce,
+  1. set-up: the card's name and power limit, TF32 off, the five kernel
+     libraries (tile_forward, tile_backward, camera_rays, segment_reduce,
      segment_reduce_compact) built from csrc/ with nvcc, all at once;
+ 1b. the camera-ray kernel (csrc/camera_rays.cu) at
+     1920x1088, tile 16, against the plain route on the card (NumPy rays,
+     the upload, tile_ray_rows) after a NaN-poisoned allocator: origins
+     bit-equal, directions bit-equal on >= 99.999% of components and
+     within one f32 ulp, every row bit-equal on every ray whose direction
+     is; the kernel timed with and without a tmax clip beside its byte
+     bound, and the plain route's three parts timed in the same call;
   2. the tile kernels against their plain PyTorch versions on the same
      binned inputs: small scenes at tile_size=8/chunk_size=128, at the
      defaults with log-space transmittance, with another kernel degree, a
@@ -195,6 +202,8 @@ POSE_STEPS, POSE_LR, POSE_SIGMA = 20, 3e-3, 0.02
 COUNT_BATCH = 512
 #: the training window of bench.py: K steps per topology refresh, SGD lr
 TRAIN_K, TRAIN_LR, TRAIN_TARGET = 10, 1e-12, 0.3
+#: bytes the camera-ray kernel writes a ray: 24 f32 rows
+RAY_BYTES = 24 * 4
 
 FULL_W, FULL_H, FULL_N = 1920, 1088, 300_000
 #: the light field's tile (models/lightfield.py): R = 400 rays per tile
@@ -848,6 +857,88 @@ def compare_frames(got, want, label):
                       "rgb_max_abs": d_rgb, "t_max_abs": d_t}), flush=True)
     if int(got["overflow"]) or not hits or max(d_rgb, d_t) > 1e-5:
         fail(f"banded frame ({label}) differs from the unbanded one")
+
+
+def rays_phase(gt, torch, dev, binning, name, power):
+    """Phase 1b: the camera-ray kernel against the plain route at full width,
+    and both timed; returns the kernels line's numbers."""
+    import numpy as np
+    t_phase = time.time()
+    base = gt.DEFAULT_CONFIG
+    a = np.radians(30.0)  # a serving orbit's camera, 30 degrees round
+    c2w = np.eye(4)
+    c2w[:3, :3] = [[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0],
+                   [-np.sin(a), 0.0, np.cos(a)]]
+    c2w[:3, 3] = [3.0 * np.sin(a), 0.0, -3.0 + 3.0 * np.cos(a)]
+    cam = gt.Camera.from_fovy(FULL_W, FULL_H, 50.0, c2w)
+    g = torch.Generator(device=dev).manual_seed(5)
+    clip = 2.0 + 2.0 * torch.rand((FULL_H, FULL_W), generator=g, device=dev)
+    clip[:, ::3] = float("inf")
+    checks = {}
+    for label, kw in (("unclipped", {}), ("clipped", {"tmax_clip": clip})):
+        want = binning.tile_rays(cam, base, dev, impl="torch", **kw)
+        poison_allocator(torch, 4 * want.numel(), dev)
+        got = binning.tile_rays(cam, base, dev, impl="cuda", **kw)
+        torch.cuda.synchronize()
+        same = ((got.view(torch.int32) == want.view(torch.int32))
+                | (got.isnan() & want.isnan()))
+        d_same = same[:, 3:6]
+        ulps = (got[:, 3:6].view(torch.int32).long()
+                - want[:, 3:6].view(torch.int32).long()).abs()
+        c = {"dir_bit_equal_share": float(d_same.double().mean()),
+             "max_dir_ulp": int(ulps.max()),
+             "rays_bit_equal_share": float(same.all(1).double().mean()),
+             "rows_differ_on_equal_dir": int(
+                 (~same.all(1) & d_same.all(1)).sum())}
+        checks[label] = c
+        if (not bool(same[:, 0:3].all()) or c["dir_bit_equal_share"] < 0.99999
+                or c["max_dir_ulp"] > 1 or c["rows_differ_on_equal_dir"]
+                or not bool(got.isfinite().all())):
+            fail(f"camera-ray kernel ({label}) against the plain route: {c}")
+    del want, got, same
+
+    def kernel_ms(n=50, **kw):
+        """Device ms a launch over n back-to-back launches."""
+        binning.camera_rays_kernel(cam, base, dev, **kw)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            binning.camera_rays_kernel(cam, base, dev, **kw)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n
+
+    def plain_parts():
+        """Host ms of the plain route's three parts, each fenced."""
+        t0 = time.perf_counter()
+        o, d = cam.rays()
+        t1 = time.perf_counter()
+        o = torch.as_tensor(np.ascontiguousarray(o), device=dev)
+        d = torch.as_tensor(np.ascontiguousarray(d), device=dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        binning.tile_ray_rows(o, d, base)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        return [1e3 * (t1 - t0), 1e3 * (t2 - t1), 1e3 * (t3 - t2)]
+
+    n_rays = FULL_W * FULL_H
+    plain = np.median([plain_parts() for _ in range(5)], axis=0)
+    res = {"ms": kernel_ms(), "clipped_ms": kernel_ms(tmax_clip=clip),
+           "bound_ms": roofline(n_rays * RAY_BYTES, 0)[0],
+           "clipped_bound_ms": roofline(n_rays * (RAY_BYTES + 4), 0)[0],
+           "bound_by": "bytes",
+           "plain_ms": {"numpy": float(plain[0]), "upload": float(plain[1]),
+                        "rows": float(plain[2]),
+                        "total": float(plain.sum())},
+           "checks": checks}
+    print(json.dumps({"phase": "camera_rays", "card": name,
+                      "power_limit": power, "width": FULL_W,
+                      "height": FULL_H, "tile": base.tile_size, **res,
+                      "seconds": time.time() - t_phase}), flush=True)
+    return res
 
 
 def bench_scene(gt, torch, device):
@@ -1872,6 +1963,9 @@ def main():
     dev = torch.device("cuda", torch.cuda.current_device())
     t_all = time.time()
 
+    # ---- 1b. the camera-ray kernel ---------------------------------------
+    rays_res = rays_phase(gt, torch, dev, binning, name, power)
+
     # ---- 2. kernels against plain versions ------------------------------
     def add_training_errs(errs):
         tin_errs.append(errs[0])
@@ -1979,10 +2073,15 @@ def main():
     renderer.plan(model, [cam])
     plan_s = time.time() - t0
     reset_launches()
+    rays_before = binning.camera_rays_kernel.launches
     with torch.no_grad():  # serving: K1 without the training residual
         out = renderer.render(model, cam)
     torch.cuda.synchronize()
     serve_launches = launches()
+    serve_ray_launches = binning.camera_rays_kernel.launches - rays_before
+    if serve_ray_launches != 1:
+        fail(f"a serving frame made its rays in {serve_ray_launches} "
+             f"camera-ray launches")
     mean_hits = float(out["hit_count"].mean())
     print(json.dumps({"phase": "full_width", "width": FULL_W,
                       "height": FULL_H, "gaussians": FULL_N,
@@ -2809,6 +2908,15 @@ def main():
               garden_launches["segment_reduce_compact"],
               max(k4_err, k4_table["max_abs_err"]), k4_ms, k4_plain_ms,
               (k4_b_ms, k4_b_by), k4_lib_ms, table_mode=k4_table),
+        # no TPU kernel: the JAX package makes its rays in NumPy
+        {"name": "camera_rays", "route": "cuda",
+         "source": f"{PKG}/csrc/camera_rays.cu", "replaces": None,
+         "launches": serve_ray_launches, "max_dir_ulp": max(
+             c["max_dir_ulp"] for c in rays_res["checks"].values()),
+         "ms": rays_res["ms"], "plain_ms": rays_res["plain_ms"]["total"],
+         "bound_ms": rays_res["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "clipped_ms": rays_res["clipped_ms"],
+         "clipped_bound_ms": rays_res["clipped_bound_ms"]},
     ]}), flush=True)
     print(json.dumps({"phase": "done", "seconds_after_build":
                       time.time() - t_all}), flush=True)

@@ -52,6 +52,18 @@ kernel tolerances):
     frame on the card against the port on the CPU: triangle ids,
     occlusion and object ids equal, t within 1e-6 relative, rgb within
     1e-5.
+  * The camera-ray kernel (`binning.camera_rays_kernel`) against the plain
+    route on the same card (`tile_rays(impl="torch")`: NumPy, the upload,
+    `tile_ray_rows`), after a NaN-poisoned allocator: origins bit-equal;
+    directions bit-equal on >= 99.999% of components and within one f32
+    ulp on all (the f64 sums may run in another order than NumPy's BLAS
+    product); every row bit-equal, NaN matching NaN, on every ray whose
+    direction is; every entry written.  At 1920x1088 (tile 16), tiles 8,
+    20, 32 and 64, non-square images, SH degrees 0-3, an aabb override, an
+    identity camera whose centre ray has zero x and y (the +-1e-6 clamp),
+    and a tmax clip with finite, inf and NaN entries.  The 300k frame
+    through `TiledRenderer.render` on the kernel's rays: K1's hit counts
+    equal to K1's on the plain route's rays on every ray whose rows are.
   * The pose gradient (d loss / d delta_t, d loss / d delta_r of
     `train.pose.pose_loss`: K1's residual, then K2 with ray cotangents)
     against the plain versions at R = 64, 256, 576 and 1024 (the last at
@@ -851,3 +863,141 @@ def test_mesh_trace_on_the_card_matches_the_cpu(cuda):
     b = HybridRenderer(32, 32, hc, device="cpu").render(scene, cam)
     assert torch.equal(a["object"].cpu(), b["object"])
     torch.testing.assert_close(a["rgb"].cpu(), b["rgb"], rtol=0, atol=1e-5)
+
+
+# ---- camera rays: the kernel against the plain route -------------------------
+
+def _orbit_camera(width, height, seed, fovy=50.0):
+    """A camera at a random place with a random rotation (the kernel's f64
+    products see every matrix entry)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal(4)
+    a, b, c, d = q / np.linalg.norm(q)
+    c2w = np.eye(4)
+    c2w[:3, :3] = [[a * a + b * b - c * c - d * d, 2 * (b * c - a * d),
+                    2 * (b * d + a * c)],
+                   [2 * (b * c + a * d), a * a - b * b + c * c - d * d,
+                    2 * (c * d - a * b)],
+                   [2 * (b * d - a * c), 2 * (c * d + a * b),
+                    a * a - b * b - c * c + d * d]]
+    c2w[:3, 3] = rng.uniform(-3.0, 3.0, 3)
+    return gt.Camera.from_fovy(width, height, fovy, c2w)
+
+
+def _bit_equal(got, want):
+    """Entries equal bit for bit, NaN matching NaN."""
+    return ((got.view(torch.int32) == want.view(torch.int32))
+            | (got.isnan() & want.isnan()))
+
+
+def _rays_both_ways(cuda, cam, cfg, **kw):
+    """(kernel, plain route) rays of `cam` on the card, the kernel's after a
+    NaN-poisoned allocator; the kernel launched once."""
+    want = binning.tile_rays(cam, cfg, cuda, impl="torch", **kw)
+    before = binning.camera_rays_kernel.launches
+    torch.full((2 * want.numel(),), float("nan"), device=cuda)
+    got = binning.tile_rays(cam, cfg, cuda, impl="cuda", **kw)
+    torch.cuda.synchronize()
+    assert binning.camera_rays_kernel.launches == before + 1
+    assert got.shape == want.shape and got.dtype == torch.float32
+    return got, want
+
+
+def _assert_rays_match(got, want):
+    same = _bit_equal(got, want)
+    assert bool(same[:, 0:3].all()), "origins"
+    d_same = same[:, 3:6]
+    assert float(d_same.double().mean()) >= 0.99999, "directions"
+    ulps = (got[:, 3:6].view(torch.int32).long()
+            - want[:, 3:6].view(torch.int32).long()).abs()
+    assert int(ulps.max()) <= 1, int(ulps.max())
+    rows_same = same.all(dim=1)
+    assert bool(rows_same[d_same.all(dim=1)].all()), "rows"
+    # every entry written: NaN only where the plain route has it (a clip)
+    assert not bool((got.isnan() & ~want.isnan()).any())
+
+
+RAY_CASES = {  # width, height, tile, SH degree
+    "1080p_t16": (1920, 1088, 16, 3),
+    "t8_deg0": (96, 48, 8, 0),
+    "t20_R400": (200, 120, 20, 3),
+    "t32_deg2": (256, 160, 32, 2),
+    "t64_R4096_deg1": (256, 192, 64, 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RAY_CASES))
+def test_camera_ray_kernel_matches_plain_route(cuda, name):
+    w, h, tile, deg = RAY_CASES[name]
+    cfg = BASE.replace(tile_size=tile, sh_degree=deg)
+    got, want = _rays_both_ways(cuda, _orbit_camera(w, h, tile), cfg)
+    _assert_rays_match(got, want)
+    assert bool(got.isfinite().all())
+    # degree d fills (d + 1)^2 basis rows, the rest are zero
+    assert bool((got[:, 8 + (deg + 1) ** 2:] == 0).all())
+
+
+def test_camera_ray_kernel_edge_cases(cuda):
+    """An aabb override; an identity camera at tile 5 whose centre ray has
+    x = y = 0 exactly (the +-1e-6 direction clamp); a tmax clip with
+    finite, inf and NaN entries."""
+    box = (-1.0, -2.0, -0.5, 1.5, 0.5, 2.0)
+    got, want = _rays_both_ways(cuda, _orbit_camera(160, 96, 3), BASE,
+                                aabb=box)
+    _assert_rays_match(got, want)
+    free, _ = _rays_both_ways(cuda, _orbit_camera(160, 96, 3), BASE)
+    assert bool((got[:, 6:8] != free[:, 6:8]).any())
+
+    cam = gt.Camera.from_fovy(45, 35, 60.0, np.eye(4))
+    cfg5 = BASE.replace(tile_size=5)
+    got, want = _rays_both_ways(cuda, cam, cfg5)
+    _assert_rays_match(got, want)
+    centre = binning.untile(want, 45, 35, 5)[17, 22]
+    assert float(centre[3]) == 0.0 and float(centre[4]) == 0.0
+    assert bool(got.isfinite().all())
+
+    cam = _orbit_camera(160, 96, 4)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    clip = 0.5 + 3.0 * torch.rand((96, 160), generator=g, device=cuda)
+    clip[:, 80:] = float("inf")
+    clip[::7] = float("nan")
+    got, want = _rays_both_ways(cuda, cam, BASE, tmax_clip=clip)
+    _assert_rays_match(got, want)
+    tmax = binning.untile(got[:, 7:8], 160, 96, 16)[..., 0]
+    assert bool(tmax[::7].isnan().all())
+    assert int(tmax.isnan().sum()) == tmax[::7].numel()
+
+
+def test_frame_on_kernel_rays_matches_plain_rays(cuda):
+    """The 300k frame at 1920x1088 through `TiledRenderer.render` (its rays
+    from the kernel), then K1 on the same topology with the plain route's
+    rays: hit counts equal on every ray whose rows are bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    n = 300_000
+    model = gt.random_gaussians(g, n, extent=1.0, scale_range=(-6.1, -4.4),
+                                device=cuda)
+    with torch.no_grad():
+        model.means[:, 2] -= 3.0
+        model.opacity_logit.copy_(-3.5 + 4.0 * torch.rand(
+            n, generator=g, device=cuda))
+    cam = gt.Camera.from_fovy(1920, 1088, 50.0, np.eye(4))
+    r = gt.render.TiledRenderer(1920, 1088)
+    before = binning.camera_rays_kernel.launches
+    with torch.no_grad():
+        out = r.render(model, cam)
+        assert binning.camera_rays_kernel.launches == before + 1
+        rays_k = r._ray_cache[cam.content_key()]
+        rays_t = binning.tile_rays(cam, BASE, cuda, impl="torch")
+        act = model.activate()
+        topo = r._topology(act, cam, False)
+        binned = binning.binned_scene(
+            binning.gather_chunks(act, topo, BASE), topo)
+        acc_k = pf.forward_dispatch(binned, rays_k, BASE, "cuda")
+        acc_t = pf.forward_dispatch(binned, rays_t, BASE, "cuda")
+    assert int(out["overflow"]) == 0
+    hits = binning.untile(acc_k, 1920, 1088, 16)[..., 5]
+    assert torch.equal(hits, out["hit_count"])
+    same = _bit_equal(rays_k, rays_t).all(dim=1)
+    assert float(same.double().mean()) >= 0.9999
+    assert torch.equal(acc_k[:, 5][same], acc_t[:, 5][same])
+    assert float(out["hit_count"].mean()) > 1.0

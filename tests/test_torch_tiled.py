@@ -169,6 +169,60 @@ def test_cli_info_and_benchmark(tmp_path, capsys, monkeypatch):
     assert "frame,ms" in open("fps.txt").read()
 
 
+RAY_CFG = gt.DEFAULT_CONFIG.replace(tile_size=8)
+
+
+def _ray_builders():
+    """Each builder of camera rays, as a call taking `impl` and returning
+    the rays as one tensor, with the module whose `tile_rays` it calls and
+    the impl it hands on for "auto" (the renderer resolves its own)."""
+    from gvrt_tpu_torch.parallel import sharding
+    from gvrt_tpu_torch.render import binning, tiled
+    cam = gt.Camera.from_fovy(32, 24, 60.0, np.eye(4))
+    renderer = lambda impl: gt.render.TiledRenderer(  # noqa: E731
+        32, 24, RAY_CFG, impl=impl, device="cpu")
+    return {
+        "tile_rays": (binning, "auto", lambda impl: binning.tile_rays(
+            cam, RAY_CFG, "cpu", impl=impl)),
+        "band_rays": (binning, "auto", lambda impl: binning.band_rays(
+            cam, RAY_CFG, 3, "cpu", impl=impl)),
+        "band_rays_split": (binning, "auto", lambda impl: torch.cat(
+            binning.band_rays_split(cam, RAY_CFG, ((0, 1), (1, 2)), "cpu",
+                                    impl=impl))),
+        "camera_batch": (sharding, "auto", lambda impl: sharding.camera_batch(
+            [cam], RAY_CFG, "cpu", impl=impl).rays),
+        "TiledRenderer": (tiled, "torch",
+                          lambda impl: renderer(impl)._rays(cam)),
+    }
+
+
+@pytest.mark.parametrize("name", ["tile_rays", "band_rays",
+                                  "band_rays_split", "camera_batch",
+                                  "TiledRenderer"])
+def test_ray_builders_pass_impl_through(monkeypatch, name):
+    """Every ray builder hands its `impl` to `tile_rays`: "cuda" raises on
+    the CPU, "auto" and "torch" take the plain route, the same rays."""
+    module, handed, build = _ray_builders()[name]
+    real, seen = module.tile_rays, []
+
+    def recording(*args, impl="auto", **kwargs):
+        seen.append(impl)
+        return real(*args, impl=impl, **kwargs)
+
+    monkeypatch.setattr(module, "tile_rays", recording)
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        build("cuda")
+    auto, plain = build("auto"), build("torch")
+    assert seen[-2:] == [handed, "torch"]
+    assert torch.equal(auto, plain)
+
+
+def test_tile_rays_refuses_an_unknown_impl():
+    cam = gt.Camera.from_fovy(32, 24, 60.0, np.eye(4))
+    with pytest.raises(ValueError, match="unknown impl"):
+        gt.render.binning.tile_rays(cam, RAY_CFG, "cpu", impl="triton")
+
+
 def test_missing_cuda_raises_unless_cpu_is_asked_for(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

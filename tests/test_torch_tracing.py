@@ -162,6 +162,26 @@ def test_frame_spans_parents_and_units():
     assert all(row["device_ms"] is None for row in rec["spans"].values())
 
 
+def test_rays_on_the_cpu_keep_the_plain_route():
+    """`tile_rays` with impl "auto" on the CPU: NumPy, the upload and
+    `tile_ray_rows` under their spans, bit for bit `tile_ray_rows` of
+    `Camera.rays()`; no kernel span or counter."""
+    cam = _camera(0.01)
+    o, d = cam.rays()
+    want = gt.render.binning.tile_ray_rows(torch.from_numpy(o),
+                                           torch.from_numpy(d), CFG)
+    with torch.profiler.profile():
+        got = gt.render.binning.tile_rays(cam, CFG, "cpu")
+    rec, log = profiling.recorded(), _log()
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert _parents(log, "gvrt.rays") == {None}
+    for name in ("gvrt.rays.numpy", "gvrt.rays.upload", "gvrt.rays.rows"):
+        assert _parents(log, name) == {"gvrt.rays"}, name
+        assert rec["spans"][name]["calls"] == 1, name
+    assert "gvrt.rays.kernel" not in rec["spans"]
+    assert "gvrt.rays.kernel" not in rec["counts"]
+
+
 def test_self_time_is_duration_less_children():
     r, model, cam = _frame("cpu")
     with torch.profiler.profile():
@@ -353,6 +373,28 @@ def _syncs(fn):
     counted = profiling.recorded()["counts"].get(profiling.HOST_SYNCS, 0)
     return counted, len(synced), sorted(
         f"{os.path.basename(w.filename)}:{w.lineno}" for w in synced)
+
+
+@pytest.mark.cuda
+def test_frame_rays_come_from_the_kernel(cuda):
+    """On the card a frame's rays are one kernel launch under `gvrt.rays`,
+    counted once per build; the plain route's spans stay shut."""
+    r, model, cam = _frame(cuda)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        with torch.no_grad():
+            r.render(model, cam)
+            r.render(model, _camera(0.01))
+            r.render(model, cam)   # from the ray cache: no build
+        torch.cuda.synchronize()
+    rec, log = profiling.recorded(), _log()
+    assert _parents(log, "gvrt.rays.kernel") == {"gvrt.rays"}
+    assert rec["spans"]["gvrt.rays.kernel"]["calls"] == 2
+    assert rec["counts"]["gvrt.rays.kernel"] == 2
+    assert rec["counts"]["gvrt.rays.built"] == 2
+    for name in ("gvrt.rays.numpy", "gvrt.rays.upload", "gvrt.rays.rows"):
+        assert name not in rec["spans"], name
 
 
 @pytest.mark.cuda
