@@ -15,6 +15,7 @@ The group's backend is NCCL when the ranks run on cards, gloo on the CPU.
 
 from __future__ import annotations
 
+import datetime
 import os
 from typing import Optional
 
@@ -22,6 +23,11 @@ import torch
 import torch.distributed as dist
 
 from ..config import resolve_device
+
+#: how long the rendezvous and every collective wait for the other ranks
+#: before they fail: a rank that dies then ends every rank with an error
+#: instead of leaving them waiting
+TIMEOUT = datetime.timedelta(minutes=5)
 
 
 def _env_int(name: str) -> Optional[int]:
@@ -55,7 +61,8 @@ def init_distributed(init_method: Optional[str] = None,
     False, as the JAX package's does without a coordinator.  The backend
     defaults to "nccl" when this rank's device (`rank_device(device)`) is a
     card and "gloo" on the CPU; under NCCL that card becomes the current
-    one.  Returns True once the group is initialized."""
+    one.  Every wait for the other ranks is bounded by `TIMEOUT`.  Returns
+    True once the group is initialized."""
     if dist.is_initialized():
         return True
     world_size = world_size if world_size is not None else _env_int(
@@ -76,7 +83,7 @@ def init_distributed(init_method: Optional[str] = None,
     if backend == "nccl":
         torch.cuda.set_device(rank_device(device))
     dist.init_process_group(backend, init_method=init_method,
-                            world_size=world_size, rank=rank)
+                            world_size=world_size, rank=rank, timeout=TIMEOUT)
     return True
 
 

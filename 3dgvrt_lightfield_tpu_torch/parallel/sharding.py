@@ -36,7 +36,7 @@ from ..render.binning import (band_rays, bin_topology, binned_scene,
                               unband_image, untile)
 from ..render.pallas_forward import forward_dispatch, resolve_impl
 from ..render.tiled import _camera_mats
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .distributed import local_batch_slice, rank_device
 
 
@@ -154,20 +154,32 @@ def average_gradients(model: GaussianModel, mesh: Mesh,
     """All-reduce every leaf's gradient (a leaf without one counts as zero)
     and `loss` to their averages over the mesh, in one flat bucket: the
     counterpart of the `pmean`s of the JAX package's sharded step.  Returns
-    the averaged loss (None without one)."""
+    the averaged loss (None without one).
+
+    Spans: `gvrt.allreduce` around it all, `.pack` for the bucket's
+    concatenation, `.unpack` for the copy back into the leaves; counters
+    `gvrt.allreduce.bytes` (the bucket's bytes) and `gvrt.ranks` (the
+    mesh's size), once a call."""
     leaves = model.leaves()
-    for p in leaves:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    parts = [p.grad.reshape(-1) for p in leaves]
-    if loss is not None:
-        parts.append(loss.detach().reshape(1).to(parts[0].dtype))
-    flat = _all_reduce_sum_(mesh, torch.cat(parts)) / mesh.size
-    off = 0
-    for p in leaves:
-        p.grad.copy_(flat[off:off + p.numel()].view_as(p))
-        off += p.numel()
-    return None if loss is None else flat[-1]
+    with span("gvrt.allreduce"):
+        with span("gvrt.allreduce.pack"):
+            for p in leaves:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            parts = [p.grad.reshape(-1) for p in leaves]
+            if loss is not None:
+                parts.append(loss.detach().reshape(1).to(parts[0].dtype))
+            flat = torch.cat(parts)
+        count("gvrt.allreduce.bytes", flat.numel() * flat.element_size())
+        count("gvrt.ranks", mesh.size)
+        _all_reduce_sum_(mesh, flat).div_(mesh.size)
+        with span("gvrt.allreduce.unpack"):
+            off = 0
+            for p in leaves:
+                p.grad.copy_(flat[off:off + p.numel()].view_as(p))
+                off += p.numel()
+    # a copy: a view would keep the whole bucket alive with the loss
+    return None if loss is None else flat[-1].clone()
 
 
 class CameraBatch(NamedTuple):
@@ -242,6 +254,7 @@ def render_batch_sharded(model: GaussianModel, cams: CameraBatch,
                                                   imgs.shape[-1])
 
 
+@span("gvrt.replicate")
 def replicate_model(model: GaussianModel, mesh: Mesh) -> GaussianModel:
     """Move the model to this rank's device and broadcast every leaf from
     the mesh's first rank, so all ranks start from the same parameters."""

@@ -21,7 +21,8 @@ The topology also carries the gradient-reduce plan (`segreduce.py`) that
 the gather's backward (`param_grads.chunked_gather`) sums per-pair
 cotangents with: the compact plan when the caller planned a live-Gaussian
 capacity (the banded path, `render/banded.py`), else the full-id-space
-plan for scenes up to 1.5M Gaussians, else none (the prefix fallback).
+plan wherever its 24-bit slot field holds the frame's padded capacity,
+else none (the prefix fallback).
 `plan_reduce_capacity_from_table` and `plan_compact_reduce_from_table` size
 them from the measured survivors.
 
@@ -52,8 +53,9 @@ from ..ops.sh import sh_basis_components
 from ..models.gaussians import ActivatedGaussians
 from ..utils.profiling import count, open_in_backward, span
 from .param_grads import chunked_gather
-from .segreduce import (GROUP, build_reduce_plan, build_reduce_plan_compact,
-                        plan_rows, plan_rows_compact)
+from .segreduce import (DEAD_SLOT, GROUP, build_reduce_plan,
+                        build_reduce_plan_compact, plan_rows,
+                        plan_rows_compact)
 from .tile_math import RAY_ROWS
 
 _I32 = torch.int32
@@ -277,10 +279,6 @@ _SORT = span("gvrt.binning.sort")
 _LAYOUT = span("gvrt.binning.layout")
 _REDUCE_PLAN = span("gvrt.binning.reduce_plan")
 
-#: above this many Gaussians the full-id-space reduce plan's O(N) padding
-#: rows outweigh it: the gather's backward takes the prefix fallback
-REDUCE_PLAN_MAX_N = 1_500_000
-
 
 @span("gvrt.binning")
 def bin_topology(act: ActivatedGaussians, w2c, proj, width: int, height: int,
@@ -434,8 +432,11 @@ def bin_topology_from_table(tab: FrameCullTable, proj, width: int,
     # grouped gradient-reduce layout (segreduce.py): pure topology work,
     # amortized over the bind/refresh cadence.  Three regimes: the compact
     # plan over the band's live gaussians when a live capacity is planned
-    # (the banded path), else the full-id-space plan up to
-    # REDUCE_PLAN_MAX_N, else none (the prefix fallback)
+    # (the banded path), else the full-id-space plan while its 24-bit slot
+    # field holds every padded slot, else none (the prefix fallback).  The
+    # JAX package stops the full plan at 1.5M Gaussians, but the fallback's
+    # float32 prefix sums over ~10^7 pairs lose ~2e-3 of a garden-scale
+    # gradient's norm to cancellation, so the port keeps the direct sums
     red = None
     if with_reduce_plan and capacity_live > 0:
         assert capacity_live % GROUP == 0, capacity_live
@@ -446,7 +447,7 @@ def bin_topology_from_table(tab: FrameCullTable, proj, width: int,
                 pair_g, pair_pos, offsets, counts, n, capacity,
                 capacity_padded, capacity_live, cap_r, capacity_range)
         overflow = overflow + red_overflow
-    elif with_reduce_plan and n <= REDUCE_PLAN_MAX_N:
+    elif with_reduce_plan and capacity_padded < DEAD_SLOT:
         with _REDUCE_PLAN:
             red, red_overflow = build_reduce_plan(
                 pair_g, pair_pos, offsets, counts, n, capacity,

@@ -7,15 +7,17 @@ are contiguous (`offsets`/`counts` from the tile-rectangle expansion), so
 gathering the per-slot cotangents back into pre-sort order turns the
 scatter into contiguous segment sums.  Two routes:
 
-  * the grouped reduce plan (`segreduce.py`, the default up to 1.5M
-    Gaussians): the slot gather and the per-Gaussian sum in one kernel, K3
-    on the card (`segreduce.segment_reduce`), a direct sum per Gaussian;
+  * the grouped reduce plan (`segreduce.py`, the default wherever the
+    frame's padded slots fit its 24-bit slot field: garden scale too): the
+    slot gather and the per-Gaussian sum in one kernel, K3 on the card
+    (`segreduce.segment_reduce`), a direct sum per Gaussian;
   * the compact plan of the banded path (`segreduce.CompactReducePlan`):
     the same sum over the band's live Gaussians renumbered densely, written
     through the plan's live-id window straight into the table, by K4's
     table mode on the card (`segreduce.segment_reduce_compact_table`);
   * the prefix fallback (no plan in the topology): a blocked inclusive
-    cumsum and segment differences, plain PyTorch.
+    cumsum and segment differences, plain PyTorch; its float32 prefix
+    loses the small segments of a long one to cancellation.
 """
 
 from __future__ import annotations

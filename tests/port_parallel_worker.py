@@ -1,13 +1,15 @@
-"""One rank of a 2-rank gloo run of the port's multi-device code, for the
-parity tests of `tests/test_torch_parallel.py` and
-`tests/test_torch_lightfield.py`.
+"""One rank of a run of the port's multi-device code, for the parity tests
+of `tests/test_torch_parallel.py`, `tests/test_torch_lightfield.py`,
+`tests/test_torch_data_parallel.py` and `tests/test_torch_tracing.py`
+(gloo ranks on the CPU), and of `tests/test_torch_cuda.py` (NCCL ranks,
+one a card: the modes ending in "_cuda").
 
-Each test module starts one run through `start_ranks`: two processes of this
-script on the CPU, joined by a `file://` rendezvous under the test's own
-directory (so concurrent test workers never meet), each with its own
-timeout.  The inputs (scene leaves, camera poses, training targets) come
-from the test in `inputs.npz`; rank r writes its results to `out{r}.npz`.
-The worker imports torch and the port only.
+Each test starts one run through `start_ranks`: `world` processes of this
+script, joined by a `file://` rendezvous under the test's own directory
+(so concurrent test workers never meet), with a timeout for the run.  The
+inputs (scene leaves, camera poses, training targets) come from the test
+in `inputs.npz`; rank r writes its results to `out{r}.npz`.  The worker
+imports torch and the port only.
 
     python tests/port_parallel_worker.py MODE WORKDIR RANK WORLD
 """
@@ -29,6 +31,8 @@ TRAIN_TARGET = 0.3
 OPTIMIZERS = ("adam", "adafactor")
 #: the light field's sharded run (tests/test_lightfield.py's config)
 LF_SIZE, LF_TILE = 40, 8
+#: the data-parallel steps: 64^2 at tile 16, chunk 64, one view a rank
+DP_RES, DP_FOVY = 64, 50.0
 
 
 def cfg_batch(gt):
@@ -119,6 +123,53 @@ def _parallel(gt, mesh, inputs):
     return out
 
 
+def cfg_dp(gt):
+    return gt.DEFAULT_CONFIG.replace(tile_size=16, chunk_size=64)
+
+
+def _data_parallel(gt, mesh, inputs):
+    """`Trainer(mesh)` steps, as `train --devices N` takes them: each step
+    a batch of the inputs' views (c2w (steps, B, 4, 4)) with its targets
+    ((steps, B, H, W, 3)); after step k the loss, each leaf's averaged
+    gradient and each leaf."""
+    import torch
+    from gvrt_tpu_torch.models.gaussians import LEAVES
+    from gvrt_tpu_torch.parallel import sharding as sh
+    from gvrt_tpu_torch.render.tiled import TiledRenderer
+    leaves = {k: inputs[k] for k in LEAVES}
+    model = sh.replicate_model(gt.GaussianModel.from_numpy(leaves, "cpu"),
+                               mesh)
+    cfg = cfg_dp(gt)
+    steps = [[gt.Camera.from_fovy(DP_RES, DP_RES, DP_FOVY, c2w)
+              for c2w in views] for views in inputs["c2w"]]
+    cap = TiledRenderer(DP_RES, DP_RES, cfg, device=mesh.device).plan(
+        model, [c for views in steps for c in views])
+    tr = gt.train.Trainer(DP_RES, DP_RES, cfg, gt.train.TrainConfig(), cap,
+                          mesh=mesh)
+    state = tr.init(model)
+    out = {}
+    for k, cams in enumerate(steps):
+        batch = sh.camera_batch(cams, cfg, mesh.device)
+        targets = torch.as_tensor(inputs["targets"][k], device=mesh.device)
+        state, loss = tr.step(state, batch, targets)
+        out[f"loss{k}"] = np.float32(loss.cpu())
+        for name, p in zip(LEAVES, model.leaves()):
+            out[f"grad{k}_{name}"] = p.grad.cpu().numpy().copy()
+            out[f"param{k}_{name}"] = p.detach().cpu().numpy().copy()
+    return out
+
+
+def _tracing(gt, mesh, inputs):
+    """The data-parallel steps under `utils.profiling.trace()`: the
+    program's record of them, as JSON."""
+    import json
+    import tempfile
+    from gvrt_tpu_torch.utils import profiling
+    with tempfile.TemporaryDirectory() as logdir, profiling.trace(logdir):
+        _data_parallel(gt, mesh, inputs)
+    return {"record": np.array(json.dumps(profiling.recorded()))}
+
+
 def _lightfield(gt, mesh, inputs):
     leaves = {k: inputs[k] for k in gt.models.gaussians.LEAVES}
     model = gt.GaussianModel.from_numpy(leaves, "cpu")
@@ -128,6 +179,11 @@ def _lightfield(gt, mesh, inputs):
     return {"images": res["images"], "ray_dirs": res["ray_dirs"]}
 
 
+MODES = {"parallel": _parallel, "lightfield": _lightfield,
+         "data_parallel": _data_parallel, "tracing": _tracing,
+         "data_parallel_cuda": _data_parallel}
+
+
 def main(mode, workdir, rank, world):
     import torch
     import torch.distributed as dist
@@ -135,13 +191,14 @@ def main(mode, workdir, rank, world):
     sys.path.insert(0, REPO)
     import gvrt_tpu_torch as gt
     from gvrt_tpu_torch.parallel import init_distributed, make_mesh
+    devices = ([f"cuda:{r}" for r in range(world)] if mode.endswith("_cuda")
+               else ["cpu"] * world)
     init_distributed(f"file://{os.path.join(workdir, 'rendezvous')}", world,
-                     rank, device="cpu")
+                     rank, device=devices[rank])
     try:
-        mesh = make_mesh(world, devices=["cpu"] * world)
+        mesh = make_mesh(world, devices=devices)
         inputs = dict(np.load(os.path.join(workdir, "inputs.npz")))
-        out = {"parallel": _parallel, "lightfield": _lightfield}[mode](
-            gt, mesh, inputs)
+        out = MODES[mode](gt, mesh, inputs)
         np.savez(os.path.join(workdir, f"out{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()

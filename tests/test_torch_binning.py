@@ -164,3 +164,39 @@ def test_tile_rays_and_untile_match_jax(cfg):
     np.testing.assert_array_equal(
         tb.untile(torch.from_numpy(img), 32, 48, cfg.tile_size).numpy(),
         np.asarray(jb.untile(jnp.asarray(img), 32, 48, cfg.tile_size)))
+
+
+def test_reduce_plan_past_a_million_and_a_half_gaussians():
+    """A training frame of 2M Gaussians takes the full-id-space reduce plan
+    (K3's direct sums; the JAX package falls back to float32 prefix sums
+    above 1.5M, whose cancellation loses ~2e-3 of a garden-scale
+    gradient's norm), and its gradient rows equal a plain sum per
+    Gaussian."""
+    import gvrt_tpu_torch as gt
+    from gvrt_tpu_torch.render import param_grads, segreduce
+    from gvrt_tpu_torch.render.tiled import _camera_mats as torch_mats
+    g = torch.Generator().manual_seed(3)
+    model = gt.random_gaussians(g, 2_000_000, extent=30.0, device="cpu")
+    with torch.no_grad():
+        model.means[:, 2] -= 33.0
+    cfg = gt.DEFAULT_CONFIG.replace(tile_size=8)
+    cam = gt.Camera.from_fovy(16, 16, 10.0, np.eye(4))
+    act = model.activate()
+    w2c, proj = torch_mats(cam)
+    cap = tb.plan_capacity(act, w2c, proj, 16, 16, cfg)
+    topo = tb.bin_topology(act, w2c, proj, 16, 16, cfg, *cap,
+                           with_reduce_plan=True)
+    assert isinstance(topo.red, segreduce.ReducePlan)
+    assert int(topo.overflow) == 0 and int(topo.num_pairs) > 0
+    rows = torch.rand((model.num_gaussians + 1, 4), generator=g,
+                      dtype=torch.float64).requires_grad_()
+    chunks = param_grads.chunked_gather(
+        cfg.chunk_size, rows, topo.pair_gauss, topo.pair_pos,
+        topo.gauss_offsets, topo.gauss_counts, topo.red, "torch")
+    bar = torch.rand(chunks.shape, generator=g, dtype=torch.float64)
+    chunks.backward(bar)
+    want = torch.zeros_like(rows).index_add_(
+        0, topo.pair_gauss.long(), bar.reshape(-1, 4))
+    # padding slots name the dummy row N: compare the Gaussians' rows
+    np.testing.assert_allclose(rows.grad[:-1].numpy(), want[:-1].numpy(),
+                               rtol=1e-12, atol=1e-12)

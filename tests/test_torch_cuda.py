@@ -71,6 +71,13 @@ kernel tolerances):
     allocator, on a frame with empty corner tiles: relative L2 <= 1e-4,
     finite, nonzero; and K2's ray cotangents of that loss row by row as
     above.
+  * Data-parallel training across four cards (skips with fewer): four
+    NCCL ranks, one a card, take one `Trainer(mesh)` step of a batch of
+    four views (tests/port_parallel_worker.py, mode "data_parallel_cuda");
+    every leaf within 1e-6 of a one-process batch-4 step's on cuda:0 (the
+    gradients' sums run in another order; Adam's first step moves an
+    element by its learning rate times the gradient's sign), and the
+    ranks' leaves, gradients and loss bit-identical.
 """
 
 import os
@@ -1001,3 +1008,42 @@ def test_frame_on_kernel_rays_matches_plain_rays(cuda):
     assert float(same.double().mean()) >= 0.9999
     assert torch.equal(acc_k[:, 5][same], acc_t[:, 5][same])
     assert float(out["hit_count"].mean()) > 1.0
+
+
+def test_four_nccl_ranks_take_the_batch_step(cuda, tmp_path):
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA cards: one NCCL rank a card")
+    import port_parallel_worker as w
+    from gvrt_tpu_torch.models.gaussians import LEAVES
+    g = torch.Generator(device="cpu").manual_seed(12)
+    model = gt.random_gaussians(g, 2000, extent=0.6, device="cpu")
+    with torch.no_grad():
+        model.means[:, 2] -= 3.0
+    c2w = np.tile(np.eye(4), (1, 4, 1, 1))
+    c2w[0, :, 0, 3] = [-0.03, -0.01, 0.01, 0.03]
+    targets = np.random.default_rng(13).uniform(
+        0.0, 0.5, (1, 4, w.DP_RES, w.DP_RES, 3)).astype(np.float32)
+    np.savez(tmp_path / "inputs.npz", c2w=c2w, targets=targets,
+             **model.to_numpy())
+    w.start_ranks("data_parallel_cuda", tmp_path, world=4)()
+    outs = [dict(np.load(tmp_path / f"out{r}.npz")) for r in range(4)]
+    for r in range(1, 4):
+        for key, value in outs[0].items():
+            np.testing.assert_array_equal(outs[r][key], value,
+                                          err_msg=f"rank {r}: {key}")
+    cfg = w.cfg_dp(gt)
+    one = model.to(cuda)
+    cams = [gt.Camera.from_fovy(w.DP_RES, w.DP_RES, w.DP_FOVY, m)
+            for m in c2w[0]]
+    cap = gt.render.TiledRenderer(w.DP_RES, w.DP_RES, cfg,
+                                  device=cuda).plan(one, cams)
+    tr = gt.train.Trainer(w.DP_RES, w.DP_RES, cfg, gt.train.TrainConfig(),
+                          cap, device=cuda)
+    _, loss = tr.step(tr.init(one), gt.parallel.camera_batch(cams, cfg, cuda),
+                      torch.as_tensor(targets[0], device=cuda))
+    np.testing.assert_allclose(float(outs[0]["loss0"]), float(loss),
+                               rtol=1e-6)
+    for name, p in zip(LEAVES, one.leaves()):
+        np.testing.assert_allclose(outs[0][f"param0_{name}"],
+                                   p.detach().cpu().numpy(), atol=1e-6,
+                                   rtol=0, err_msg=name)

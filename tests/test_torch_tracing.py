@@ -342,6 +342,33 @@ def test_trace_writes_the_span_table(tmp_path):
     assert table["counts"]["gvrt.rays.built"] == 1
 
 
+def test_allreduce_spans_and_counters(tmp_path):
+    """Two gloo ranks of `Trainer(mesh)` (tests/port_parallel_worker.py,
+    mode "tracing"), two steps of a view a rank: on each rank
+    `gvrt.allreduce`, `.pack` and `.unpack` open once a step, the bucket's
+    bytes count 4 x (the leaves' elements + the loss) a step, the ranks
+    2 a step, and the model's broadcast is one `gvrt.replicate`."""
+    import port_parallel_worker as w
+    model = _scene("cpu", n=200, seed=6)
+    c2w = np.tile(np.eye(4), (2, 2, 1, 1))
+    c2w[:, :, 0, 3] = [[0.0, 0.02], [-0.02, 0.01]]
+    targets = np.random.default_rng(7).uniform(
+        0.0, 0.5, (2, 2, w.DP_RES, w.DP_RES, 3)).astype(np.float32)
+    np.savez(tmp_path / "inputs.npz", c2w=c2w, targets=targets,
+             **model.to_numpy())
+    w.start_ranks("tracing", tmp_path, world=2)()
+    numel = sum(p.numel() for p in model.leaves())
+    for r in range(2):
+        rec = json.loads(str(np.load(tmp_path / f"out{r}.npz")["record"]))
+        assert rec["units"]["gvrt.step"] == 2
+        for name in ("gvrt.allreduce", "gvrt.allreduce.pack",
+                     "gvrt.allreduce.unpack"):
+            assert rec["spans"][name]["calls"] == 2, (r, name)
+        assert rec["spans"]["gvrt.replicate"]["calls"] == 1
+        assert rec["counts"]["gvrt.allreduce.bytes"] == 2 * 4 * (numel + 1)
+        assert rec["counts"]["gvrt.ranks"] == 2 * 2
+
+
 # ---- on the card -------------------------------------------------------------
 
 @pytest.fixture
