@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: C signatures of the entry points, set on the loaded library
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 SIGNATURES = {
     "tile_forward": {
         "gvrt_tile_forward": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -46,6 +47,10 @@ SIGNATURES = {
     "camera_rays": {
         "gvrt_camera_rays": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
                              ctypes.c_int),
+    },
+    "max_scan": {
+        "gvrt_max_scan": ([_P, _P, _L, _P, _P], ctypes.c_int),
+        "gvrt_max_scan_scratch_words": ([_L], _L),
     },
     "segment_reduce_compact": {
         "gvrt_segment_reduce_compact": ([_P, _P, _P, _P, _P, _I, _I, _I, _I,

@@ -9,6 +9,7 @@ from . import pallas_vjp
 from . import param_grads
 from . import reference
 from . import rows_vjp
+from . import scan
 from . import segreduce
 from . import tile_math
 from . import tiled

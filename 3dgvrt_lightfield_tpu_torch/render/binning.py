@@ -13,7 +13,10 @@ The forward half of the JAX package's `render/binning.py`, on tensors:
      one contiguous run.
 
 Index math is int64 (torch's index type); the topology's arrays leave as
-int32, like the JAX package's.  Capacities are static per plan: pairs that do
+int32, like the JAX package's.  Per-pair and per-chunk runs (a pair's
+Gaussian, a chunk's tile, a sorted pair's slot offset) are filled by a
+scatter at each run's start and a running max, `scan.max_scan`: on the card
+one launch of `csrc/max_scan.cu`.  Capacities are static per plan: pairs that do
 not fit are dropped and counted in `overflow`, and the renderer re-plans.
 `plan_capacity` measures a scene+camera once on the host to pick them.
 
@@ -53,6 +56,7 @@ from ..ops.sh import sh_basis_components
 from ..models.gaussians import ActivatedGaussians
 from ..utils.profiling import count, open_in_backward, span
 from .param_grads import chunked_gather
+from .scan import max_scan
 from .segreduce import (DEAD_SLOT, GROUP, build_reduce_plan,
                         build_reduce_plan_compact, plan_rows,
                         plan_rows_compact)
@@ -231,7 +235,7 @@ def _scatter_cummax_fill(capacity: int, offsets, values, valid):
     arr = torch.zeros(capacity, dtype=_I64, device=offsets.device)
     keep = valid & (offsets < capacity)
     arr.scatter_reduce_(0, offsets[keep].long(), values[keep].long(), "amax")
-    return torch.cummax(arr, 0).values
+    return max_scan(arr)
 
 
 def _pair_ellipsoid_cull(tile_x, tile_y, csx, csy, csz, v9, p00, p11,
@@ -405,20 +409,21 @@ def bin_topology_from_table(tab: FrameCullTable, proj, width: int,
                                num_chunks - 1)
         chunk_arr.scatter_reduce_(0, last.reshape(1), tiles[num_tiles:],
                                   "amax")
-        chunk_tile = torch.cummax(chunk_arr, 0).values
+        chunk_tile = max_scan(chunk_arr)
         chunk_first = torch.cat([torch.ones(1, dtype=_I64, device=dev),
                                  (chunk_tile[1:] != chunk_tile[:-1]).long()])
 
         # sorted pair -> padded slot: dest = p + (padded_starts -
         # starts)[tile(p)]; the delta is non-decreasing over sorted pairs,
-        # so a scatter at tile edges + cummax replaces a per-pair gather
+        # so a scatter at tile edges and a running max (one streaming pass)
+        # replace a per-pair gather of the tile's delta
         delta_at = padded_starts - starts
         fill = torch.zeros(capacity, dtype=_I64, device=dev)
         edge = tile_edges[:num_tiles]
         in_cap = edge < capacity
         fill.scatter_reduce_(0, edge[in_cap], delta_at[:num_tiles][in_cap],
                              "amax")
-        delta = torch.cummax(fill, 0).values
+        delta = max_scan(fill)
         keep = tile_sorted < num_tiles
         dest_drop = torch.where(keep, p_idx + delta, capacity_padded)
         placed = dest_drop < capacity_padded

@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from .scan import max_scan
 
 #: Gaussians per output group == rows per input block
 GROUP = 256
@@ -153,7 +154,7 @@ def build_reduce_plan(pair_g: torch.Tensor, pair_pos: torch.Tensor,
     arr = torch.zeros(nb, dtype=_I64, device=dev)
     arr.scatter_reduce_(0, bstart[in_grid],
                         torch.arange(n_groups, device=dev)[in_grid], "amax")
-    out_idx = torch.cummax(arr, 0).values
+    out_idx = max_scan(arr)
     first = torch.zeros(nb, dtype=_I64, device=dev)
     first[bstart[in_grid]] = 1
     red_overflow = (live & ~fits).sum()

@@ -7,9 +7,10 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
-  1. set-up: the card's name and power limit, TF32 off, the five kernel
-     libraries (tile_forward, tile_backward, camera_rays, segment_reduce,
-     segment_reduce_compact) built from csrc/ with nvcc, all at once;
+  1. set-up: the card's name and power limit, TF32 off, the six kernel
+     libraries (tile_forward, tile_backward, camera_rays, max_scan,
+     segment_reduce, segment_reduce_compact) built from csrc/ with nvcc,
+     all at once;
  1b. the camera-ray kernel (csrc/camera_rays.cu) at
      1920x1088, tile 16, against the plain route on the card (NumPy rays,
      the upload, tile_ray_rows) after a NaN-poisoned allocator: origins
@@ -17,6 +18,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      within one f32 ulp, every row bit-equal on every ray whose direction
      is; the kernel timed with and without a tmax clip beside its byte
      bound, and the plain route's three parts timed in the same call;
+ 1c. the max-scan kernel (csrc/max_scan.cu, binning's run fills) at the
+     pair capacity of the garden serving frame (TiledRenderer.plan of the
+     5M scene at its camera), on binning's shape (sparse run starts over
+     zeros): against cummax's values after a NaN-poisoned allocator,
+     timed beside its byte bound (16 bytes an element) and beside cummax,
+     which the port no longer calls on the card;
   2. the tile kernels against their plain PyTorch versions on the same
      binned inputs: small scenes at tile_size=8/chunk_size=128, at the
      defaults with log-space transmittance, with another kernel degree, a
@@ -937,6 +944,43 @@ def rays_phase(gt, torch, dev, binning, name, power):
     print(json.dumps({"phase": "camera_rays", "card": name,
                       "power_limit": power, "width": FULL_W,
                       "height": FULL_H, "tile": base.tile_size, **res,
+                      "seconds": time.time() - t_phase}), flush=True)
+    return res
+
+
+def scan_phase(gt, torch, dev, name, power):
+    """Phase 1c: the max-scan kernel at the garden serving frame's pair
+    capacity against cummax's values, and both timed; returns the kernels
+    line's numbers."""
+    from gvrt_tpu_torch.render import scan
+    t_phase = time.time()
+    model, cam = garden_scene(gt, torch, dev)
+    n = gt.render.TiledRenderer(FULL_W, FULL_H, device=dev).plan(
+        model, [cam])[0]
+    del model
+    # binning's run fills: a run's value scattered at its start, ascending
+    g = torch.Generator(device=dev).manual_seed(6)
+    at = torch.randint(0, n, (n // 3,), generator=g, device=dev)
+    x = torch.zeros(n, dtype=torch.int64, device=dev)
+    x.scatter_reduce_(0, at, at, "amax")
+    del at
+    want = torch.cummax(x, 0).values
+    poison_allocator(torch, 16 * n, dev)
+    before = scan.max_scan.launches
+    got = scan.max_scan(x)
+    again = scan.max_scan(x)
+    torch.cuda.synchronize()
+    if scan.max_scan.launches != before + 2:
+        fail("max_scan did not launch its kernel")
+    if not (torch.equal(got, want) and torch.equal(again, want)):
+        fail(f"max-scan kernel against cummax at n = {n}: "
+             f"{int((got != want).sum())} elements differ")
+    del got, again, want
+    res = {"n": n, "ms": cuda_ms(lambda: scan.max_scan(x), n=20),
+           "library_ms": cuda_ms(lambda: torch.cummax(x, 0), n=5),
+           "bound_ms": roofline(16 * n, 0)[0], "bound_by": "bytes"}
+    print(json.dumps({"phase": "max_scan", "card": name,
+                      "power_limit": power, **res,
                       "seconds": time.time() - t_phase}), flush=True)
     return res
 
@@ -1966,6 +2010,9 @@ def main():
     # ---- 1b. the camera-ray kernel ---------------------------------------
     rays_res = rays_phase(gt, torch, dev, binning, name, power)
 
+    # ---- 1c. the max-scan kernel -----------------------------------------
+    scan_res = scan_phase(gt, torch, dev, name, power)
+
     # ---- 2. kernels against plain versions ------------------------------
     def add_training_errs(errs):
         tin_errs.append(errs[0])
@@ -2074,14 +2121,19 @@ def main():
     plan_s = time.time() - t0
     reset_launches()
     rays_before = binning.camera_rays_kernel.launches
+    scan_before = gt.render.scan.max_scan.launches
     with torch.no_grad():  # serving: K1 without the training residual
         out = renderer.render(model, cam)
     torch.cuda.synchronize()
     serve_launches = launches()
     serve_ray_launches = binning.camera_rays_kernel.launches - rays_before
+    serve_scan_launches = gt.render.scan.max_scan.launches - scan_before
     if serve_ray_launches != 1:
         fail(f"a serving frame made its rays in {serve_ray_launches} "
              f"camera-ray launches")
+    if serve_scan_launches != 3:
+        fail(f"a serving frame filled its runs in {serve_scan_launches} "
+             f"max-scan launches, not 3")
     mean_hits = float(out["hit_count"].mean())
     print(json.dumps({"phase": "full_width", "width": FULL_W,
                       "height": FULL_H, "gaussians": FULL_N,
@@ -2342,9 +2394,14 @@ def main():
             return topo, first
 
         reset_launches()
+        scan_before = gt.render.scan.max_scan.launches
         topo, (loss0, hits0, gnorm0) = train_window(train_model, capture=True)
         torch.cuda.synchronize()
         train_launches = launches()
+        bind_scan_launches = gt.render.scan.max_scan.launches - scan_before
+        if bind_scan_launches != 4:
+            fail(f"the unbanded bind filled its runs in "
+                 f"{bind_scan_launches} max-scan launches, not 4")
         overflow = int(topo.overflow)
         print(json.dumps({"phase": "train_window", "steps": TRAIN_K,
                           "capacity": list(trainer_r.capacity),
@@ -2917,6 +2974,15 @@ def main():
          "bound_ms": rays_res["bound_ms"], "bound_by": "bytes",
          "library_ms": None, "clipped_ms": rays_res["clipped_ms"],
          "clipped_bound_ms": rays_res["clipped_bound_ms"]},
+        # no TPU kernel: the JAX package's run fills are XLA's cummax; the
+        # plain version is cummax itself, timed as the library call
+        {"name": "max_scan", "route": "cuda",
+         "source": f"{PKG}/csrc/max_scan.cu", "replaces": None,
+         "launches": {"serving_frame": serve_scan_launches,
+                      "unbanded_bind": bind_scan_launches},
+         "n": scan_res["n"], "ms": scan_res["ms"],
+         "bound_ms": scan_res["bound_ms"], "bound_by": "bytes",
+         "library_ms": scan_res["library_ms"]},
     ]}), flush=True)
     print(json.dumps({"phase": "done", "seconds_after_build":
                       time.time() - t_all}), flush=True)

@@ -71,6 +71,14 @@ kernel tolerances):
     allocator, on a frame with empty corner tiles: relative L2 <= 1e-4,
     finite, nonzero; and K2's ray cotangents of that loss row by row as
     above.
+  * The max-scan kernel (`render/scan.py::max_scan`, binning's run fills)
+    against cummax's values on the card: bit for bit, twice, after an
+    allocator filled with a sentinel, at lengths 1, 2, a tile -1, +0 and
+    +1, 2^20 + 17 and 3e7, on sparse spikes over zeros, negative values,
+    long equal runs and a strictly decreasing array, and off 16-byte
+    alignment.  `bin_topology` with it against the same call on cummax:
+    every topology and reduce-plan field equal, at the 300k frame and the
+    5M frame with K3's plan and one contiguous band with the compact plan.
   * Data-parallel training across four cards (skips with fewer): four
     NCCL ranks, one a card, take one `Trainer(mesh)` step of a batch of
     four views (tests/port_parallel_worker.py, mode "data_parallel_cuda");
@@ -975,10 +983,8 @@ def test_camera_ray_kernel_edge_cases(cuda):
     assert int(tmax.isnan().sum()) == tmax[::7].numel()
 
 
-def test_frame_on_kernel_rays_matches_plain_rays(cuda):
-    """The 300k frame at 1920x1088 through `TiledRenderer.render` (its rays
-    from the kernel), then K1 on the same topology with the plain route's
-    rays: hit counts equal on every ray whose rows are bit-equal."""
+def _synth_model(cuda):
+    """The 300k frame's scene and camera."""
     g = torch.Generator(device=cuda).manual_seed(0)
     n = 300_000
     model = gt.random_gaussians(g, n, extent=1.0, scale_range=(-6.1, -4.4),
@@ -987,7 +993,14 @@ def test_frame_on_kernel_rays_matches_plain_rays(cuda):
         model.means[:, 2] -= 3.0
         model.opacity_logit.copy_(-3.5 + 4.0 * torch.rand(
             n, generator=g, device=cuda))
-    cam = gt.Camera.from_fovy(1920, 1088, 50.0, np.eye(4))
+    return model, gt.Camera.from_fovy(1920, 1088, 50.0, np.eye(4))
+
+
+def test_frame_on_kernel_rays_matches_plain_rays(cuda):
+    """The 300k frame at 1920x1088 through `TiledRenderer.render` (its rays
+    from the kernel), then K1 on the same topology with the plain route's
+    rays: hit counts equal on every ray whose rows are bit-equal."""
+    model, cam = _synth_model(cuda)
     r = gt.render.TiledRenderer(1920, 1088)
     before = binning.camera_rays_kernel.launches
     with torch.no_grad():
@@ -1008,6 +1021,137 @@ def test_frame_on_kernel_rays_matches_plain_rays(cuda):
     assert float(same.double().mean()) >= 0.9999
     assert torch.equal(acc_k[:, 5][same], acc_t[:, 5][same])
     assert float(out["hit_count"].mean()) > 1.0
+
+
+# ---- the max-scan kernel: binning's run fills --------------------------------
+
+SCAN_TILE = 4096  # csrc/max_scan.cu's kTile: elements a block
+SCAN_LENGTHS = [1, 2, SCAN_TILE - 1, SCAN_TILE, SCAN_TILE + 1, 2**20 + 17,
+                3 * 10**7]
+SCAN_SENTINEL = -0x5A5A5A5A5A5A5A5B
+
+
+def _scan_input(case, n):
+    """int64 inputs drawn with a fixed seed: binning's sparse non-negative
+    run starts over zeros, negative values (the lowest int64 first), long
+    equal runs across tile edges, a strictly decreasing array."""
+    rng = np.random.default_rng(n)
+    if case == "spikes":
+        x = np.zeros(n, np.int64)
+        at = rng.integers(0, n, max(1, n // 50))
+        x[at] = rng.integers(0, 2**40, at.size)
+    elif case == "negative":
+        x = rng.integers(-2**63, 0, n, dtype=np.int64)
+        x[0] = -2**63
+    elif case == "runs":
+        x = np.repeat(rng.integers(-2**62, 2**62, n // 5003 + 1), 5003)[:n]
+    else:
+        assert case == "decreasing", case
+        x = 2**40 - np.arange(n, dtype=np.int64)
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+@pytest.mark.parametrize("n", SCAN_LENGTHS)
+@pytest.mark.parametrize("case", ["spikes", "negative", "runs", "decreasing"])
+def test_max_scan_matches_cummax(cuda, case, n):
+    """The kernel's scan bit for bit cummax's values, twice, each after an
+    allocator filled with a sentinel; an input 8 bytes off 16-byte
+    alignment takes the element loads and gives the same."""
+    from gvrt_tpu_torch import _build
+    scan = gt.render.scan
+    lib = _build.load("max_scan")
+    assert [lib.gvrt_max_scan_scratch_words(k) for k in
+            (SCAN_TILE, SCAN_TILE + 1)] == [4, 7]
+    x = _scan_input(case, n).to(cuda)
+    want = torch.cummax(x, 0).values
+    before = scan.max_scan.launches
+    outs = []
+    for _ in range(2):
+        torch.full((2 * n + 64,), SCAN_SENTINEL, dtype=torch.int64,
+                   device=cuda)
+        outs.append(scan.max_scan(x))
+    torch.cuda.synchronize()
+    assert scan.max_scan.launches == before + (2 if n > 1 else 0)
+    for got in outs:
+        assert got.dtype == torch.int64 and got.shape == (n,)
+        assert torch.equal(got, want)
+    if n > 2:
+        off = x[1:]
+        assert off.data_ptr() % 16 == 8
+        assert torch.equal(scan.max_scan(off), torch.cummax(off, 0).values)
+
+
+def _garden_model(cuda):
+    """The 5M garden scene of `chip_smoke.py` and its 1920x1088 camera."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    n = 5_000_000
+    model = gt.random_gaussians(g, n, extent=2.0, scale_range=(-7.3, -5.3),
+                                device=cuda)
+    with torch.no_grad():
+        model.opacity_logit.copy_(-3.5 + 4.0 * torch.rand(
+            n, generator=g, device=cuda))
+        model.means[:, 2] -= 4.0
+    return model, gt.Camera.from_fovy(1920, 1088, 60.0, np.eye(4))
+
+
+@pytest.mark.parametrize("name", ["synth300k_reduce", "garden5m_reduce",
+                                  "garden5m_band_compact"])
+def test_binning_topology_with_max_scan_is_bit_identical(cuda, name,
+                                                         monkeypatch):
+    """`bin_topology` with its run fills on the kernel against the same call
+    with them on cummax (patched in here): every topology and plan field
+    equal.  The 300k frame and the 5M frame unbanded with K3's plan (four
+    fills), and the first of two contiguous bands of the y-sorted 5M scene
+    with the compact plan (three)."""
+    model, cam = (_synth_model if name.startswith("synth")
+                  else _garden_model)(cuda)
+    w, h = cam.width, cam.height
+    if name.endswith("compact"):
+        model = model.sorted_for_camera(cam, BASE)
+    with torch.no_grad():
+        act = model.activate()
+        w2c, proj = _camera_mats(cam)
+        if name.endswith("compact"):
+            cap, cap_pad, cl, cr, crg = bd.plan_capacity_banded(
+                model, cam, 2, BASE, with_reduce=True, mode="contig")
+            tab = binning.frame_cull_table(act, w2c, proj, w, h, BASE)
+
+            def topology():
+                return binning.bin_topology_from_table(
+                    tab, proj, w, h, BASE, cap, cap_pad, row_offset=0,
+                    row_count=h // BASE.tile_size // 2, capacity_reduce=cr,
+                    capacity_live=cl, capacity_range=crg)
+            plan, fills = sr.CompactReducePlan, 3
+        else:
+            r = gt.render.TiledRenderer(w, h, BASE, device=cuda)
+            r.plan(model, [cam])
+
+            def topology():
+                return binning.bin_topology(
+                    act, w2c, proj, w, h, BASE, *r.capacity,
+                    capacity_reduce=r.capacity_reduce)
+            plan, fills = sr.ReducePlan, 4
+        before = gt.render.scan.max_scan.launches
+        got = topology()
+        torch.cuda.synchronize()
+        assert gt.render.scan.max_scan.launches == before + fills
+
+        def plain(x):
+            return torch.cummax(x, 0).values
+        with monkeypatch.context() as m:
+            m.setattr(binning, "max_scan", plain)
+            m.setattr(sr, "max_scan", plain)
+            want = topology()
+    assert int(got.overflow) == 0 and int(got.num_pairs) > 0
+    assert isinstance(got.red, plan) and isinstance(want.red, plan)
+    for field in binning.BinTopology._fields:
+        if field == "red":
+            for f in plan._fields:
+                assert torch.equal(getattr(got.red, f),
+                                   getattr(want.red, f)), f"red.{f}"
+        else:
+            assert torch.equal(getattr(got, field),
+                               getattr(want, field)), field
 
 
 def test_four_nccl_ranks_take_the_batch_step(cuda, tmp_path):

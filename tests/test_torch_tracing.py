@@ -182,6 +182,21 @@ def test_rays_on_the_cpu_keep_the_plain_route():
     assert "gvrt.rays.kernel" not in rec["counts"]
 
 
+def test_cpu_run_fills_count_no_scan_kernel():
+    """On the CPU binning's run fills take the plain cummax: a frame and an
+    unbanded step bin, and the max-scan kernel's counter stays at 0."""
+    r, model, cam = _frame("cpu")
+    step = _unbanded("cpu")
+    with torch.profiler.profile():
+        with torch.no_grad():
+            r.render(model, cam)
+        step()
+    rec = profiling.recorded()
+    assert rec["units"] == {"gvrt.frame": 1, "gvrt.step": 1}
+    assert rec["counts"]["gvrt.pairs"] > 0
+    assert rec["counts"].get("gvrt.binning.scan", 0) == 0
+
+
 def test_self_time_is_duration_less_children():
     r, model, cam = _frame("cpu")
     with torch.profiler.profile():
@@ -422,6 +437,31 @@ def test_frame_rays_come_from_the_kernel(cuda):
     assert rec["counts"]["gvrt.rays.built"] == 2
     for name in ("gvrt.rays.numpy", "gvrt.rays.upload", "gvrt.rays.rows"):
         assert name not in rec["spans"], name
+
+
+@pytest.mark.cuda
+def test_run_fills_come_from_the_scan_kernel(cuda):
+    """On the card each of binning's run fills is one launch of the max-scan
+    kernel, counted as `gvrt.binning.scan`: three a serving frame (pair ->
+    Gaussian, chunk -> tile, sorted pair -> slot delta), four an unbanded
+    step's bind (and reduce block -> output group)."""
+    scan = gt.render.scan
+    r, model, cam = _frame(cuda)
+    step = _unbanded(cuda)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        before = scan.max_scan.launches
+        with torch.no_grad():
+            r.render(model, cam)
+            r.render(model, _camera(0.01))
+        frames = scan.max_scan.launches - before
+        step()
+        torch.cuda.synchronize()
+    steps = scan.max_scan.launches - before - frames
+    rec = profiling.recorded()
+    assert (frames, steps) == (6, 4)
+    assert rec["counts"]["gvrt.binning.scan"] == 10
 
 
 @pytest.mark.cuda
