@@ -29,12 +29,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..config import DEFAULT_CONFIG, RenderConfig, resolve_device
+from ..config import (DEFAULT_CONFIG, RenderConfig, resolve_device,
+                      resolve_impl)
 from ..models.gaussians import GaussianModel
 from ..render.binning import (band_rays, bin_topology, binned_scene,
-                              gather_chunks, plan_capacity, tile_rays,
+                              gather_from_rows, plan_capacity, tile_rays,
                               unband_image, untile)
-from ..render.pallas_forward import forward_dispatch, resolve_impl
+from ..render.pallas_forward import forward_dispatch
+from ..render.rows_vjp import frame_params
 from ..render.tiled import _camera_mats
 from ..utils.profiling import count, span
 from .distributed import local_batch_slice, rank_device
@@ -210,18 +212,19 @@ def local_cameras(cams: CameraBatch, mesh: Mesh):
                        cams.rays[sl].to(mesh.device)), sl
 
 
-def _render_one(act, w2c, proj, rays, width, height, cfg: RenderConfig,
-                cap: int, cap_pad: int, impl: str) -> torch.Tensor:
-    """Bin, gather and composite one camera -> (H, W, 8) accumulator image,
-    differentiable w.r.t. `act` through the gather (the topology is built
-    without grad, as in the JAX package; its reduce plan only when grad is
-    enabled)."""
+def _render_one(act, rows64, w2c, proj, rays, width, height,
+                cfg: RenderConfig, cap: int, cap_pad: int,
+                impl: str) -> torch.Tensor:
+    """Bin `act`, gather `rows64` and composite one camera -> (H, W, 8)
+    accumulator image, differentiable w.r.t. the table through the gather
+    (`frame_params` makes both; the topology is built without grad, as in
+    the JAX package, its reduce plan only when grad is enabled)."""
     with_plan = torch.is_grad_enabled()  # the gather's backward reads it
     with torch.no_grad():
         topo = bin_topology(act, w2c, proj, width, height, cfg, cap, cap_pad,
                             with_reduce_plan=with_plan)
-    acc = forward_dispatch(binned_scene(gather_chunks(act, topo, cfg, impl),
-                                        topo), rays, cfg, impl)
+    acc = forward_dispatch(binned_scene(
+        gather_from_rows(rows64, topo, cfg, impl), topo), rays, cfg, impl)
     return untile(acc, width, height, cfg.tile_size)
 
 
@@ -244,11 +247,11 @@ def render_batch_sharded(model: GaussianModel, cams: CameraBatch,
     _check_axis(mesh, axis)
     _check_model(model, mesh)
     impl = resolve_impl(impl, mesh.device)
-    act = model.activate()
+    act, rows64 = frame_params(model, cfg)
     local, _ = local_cameras(cams, mesh)
     imgs = torch.stack([
-        _render_one(act, local.w2c[i], local.proj[i], local.rays[i], width,
-                    height, cfg, cap, cap_pad, impl)
+        _render_one(act, rows64, local.w2c[i], local.proj[i], local.rays[i],
+                    width, height, cfg, cap, cap_pad, impl)
         for i in range(local.rays.shape[0])])
     return _gather_ranks(imgs, mesh).reshape(-1, height, width,
                                                   imgs.shape[-1])
@@ -304,7 +307,7 @@ def render_image_tile_sharded(model: GaussianModel, camera, mesh: Mesh,
     _check_model(model, mesh)
     impl = resolve_impl(impl, mesh.device)
     d, width, height = mesh.size, camera.width, camera.height
-    act = model.activate()
+    act, rows64 = frame_params(model, cfg)
     w2c, proj = _camera_mats(camera)
     if capacity is None:
         capacity = plan_capacity_sharded(model, camera, d, cfg)
@@ -315,8 +318,8 @@ def render_image_tile_sharded(model: GaussianModel, camera, mesh: Mesh,
         topo = bin_topology(act, w2c, proj, width, height, cfg, cap, cap_pad,
                             row_offset=mesh.index, row_stride=d,
                             with_reduce_plan=torch.is_grad_enabled())
-    acc = forward_dispatch(binned_scene(gather_chunks(act, topo, cfg, impl),
-                                        topo), rays, cfg, impl)
+    acc = forward_dispatch(binned_scene(
+        gather_from_rows(rows64, topo, cfg, impl), topo), rays, cfg, impl)
     band = untile(acc, width, height // d, cfg.tile_size)
     return unband_image(_gather_ranks(band, mesh), width, height,
                         cfg.tile_size)

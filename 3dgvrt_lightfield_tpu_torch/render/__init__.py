@@ -15,7 +15,7 @@ from . import tile_math
 from . import tiled
 from .pallas_forward import tile_forward, tile_forward_residual
 from .pallas_vjp import render_tiles_ad, tile_backward
-from .rows_vjp import rows64_from_model
+from .rows_vjp import frame_params
 from .segreduce import segment_reduce, segment_reduce_compact
 from .reference import render_image, render_rays
 from .tiled import TiledRenderer, render_image_tiled

@@ -7,7 +7,7 @@ are split into `n_bands` bands, round-robin (`stride`), contiguous (`contig`,
 span banding) or contiguous at the survivor-pair quantiles (balanced), and
 the bands are rendered one after another in a Python loop:
 
-  * per frame, the parameter table (`rows64_from_model`) and the frame cull
+  * per frame, the parameter table (`frame_params`) and the frame cull
     table are built once; each band bins its rows, gathers its pairs' rows
     and runs the tile kernel;
   * with grad on, each band's gather and kernel forward sit inside
@@ -40,15 +40,16 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..config import DEFAULT_CONFIG, RenderConfig, resolve_device
+from ..config import (DEFAULT_CONFIG, RenderConfig, resolve_device,
+                      resolve_impl)
 from ..models.gaussians import GaussianModel
 from ..utils.profiling import count, span
 from .binning import (band_rays, band_rays_split, bin_topology_from_table,
                       binned_scene, frame_cull_table, gather_from_rows,
                       plan_capacity_from_table, plan_compact_reduce_from_table,
                       plan_row_split, unband_image, untile)
-from .pallas_forward import forward_dispatch, resolve_impl
-from .rows_vjp import rows64_from_model
+from .pallas_forward import forward_dispatch
+from .rows_vjp import frame_params
 from .tile_math import ACC_DEPTH, ACC_HITS, ACC_T
 from .tiled import _camera_mats
 
@@ -177,10 +178,10 @@ def _render_banded_bound(model: GaussianModel, topos, rays_bands,
     """Render against held per-band topologies -> ((H, W, 8) image,
     overflow).
 
-    Per frame: one `rows64_from_model`, then per band a parameter gather
+    Per frame: one `frame_params` table, then per band a parameter gather
     and the tile kernel.  Gradients are exact for this forward; culling and
     depth order are as stale as the topologies."""
-    rows64 = rows64_from_model(model, cfg)
+    rows64 = frame_params(model, cfg)[1]
     ts = cfg.tile_size
     imgs = []
     for topo, rays_b in zip(topos, rays_bands):

@@ -54,7 +54,7 @@ from ..ops.aabb import intersect_aabb
 from ..ops.kernels import kernel_scale
 from ..ops.sh import sh_basis_components
 from ..models.gaussians import ActivatedGaussians
-from ..utils.profiling import count, open_in_backward, span
+from ..utils.profiling import count, span
 from .param_grads import chunked_gather
 from .scan import max_scan
 from .segreduce import (DEAD_SLOT, GROUP, build_reduce_plan,
@@ -230,8 +230,9 @@ def _band_localize(tab: FrameCullTable, ny: int, band):
     return (tx0, ty0, tx1, ty1), valid, ny
 
 
-def _scatter_cummax_fill(capacity: int, offsets, values, valid):
-    """arr[p] = values[g] for the g whose [offset, offset+count) contains p."""
+def _scatter_max_fill(capacity: int, offsets, values, valid):
+    """arr[p] = values[g] for the g whose [offset, offset+count) contains p:
+    each run's value scattered at its start, then `max_scan`."""
     arr = torch.zeros(capacity, dtype=_I64, device=offsets.device)
     keep = valid & (offsets < capacity)
     arr.scatter_reduce_(0, offsets[keep].long(), values[keep].long(), "amax")
@@ -357,8 +358,8 @@ def bin_topology_from_table(tab: FrameCullTable, proj, width: int,
     # pair p -> gaussian id via scatter of range starts + running max
     with _EXPAND:
         gid = torch.arange(n, dtype=_I64, device=dev)
-        pair_g = _scatter_cummax_fill(capacity, offsets, gid,
-                                      valid & (counts > 0))
+        pair_g = _scatter_max_fill(capacity, offsets, gid,
+                                   valid & (counts > 0))
         p_idx = torch.arange(capacity, dtype=_I64, device=dev)
         in_range = p_idx < total
         j = p_idx - offsets[pair_g]
@@ -498,8 +499,7 @@ def param_rows(act: ActivatedGaussians, cfg: RenderConfig) -> torch.Tensor:
     rows[:n, 9:12] = torch.stack(b_cols, dim=1)
     rows[:n, 12] = act.densities
     rows[:n, 16:64] = act.sh_flat
-    # autograd's backward of the table, to `activate_leaves`, starts here
-    return open_in_backward("gvrt.param_table.bwd", rows)
+    return rows
 
 
 @span("gvrt.gather")
@@ -518,9 +518,10 @@ def gather_from_rows(rows64: torch.Tensor, topo: BinTopology,
 
 def gather_chunks(act: ActivatedGaussians, topo: BinTopology,
                   cfg: RenderConfig, impl: str = "auto") -> torch.Tensor:
-    """Gather fused per-pair parameter rows into (num_chunks, G, 64) blocks:
-    the only path gradients take through binning, so a step may reuse a
-    stale topology and still get exactly its forward's gradients."""
+    """Gather fused per-pair parameter rows into (num_chunks, G, 64) blocks
+    (`param_rows` of `act`, then `gather_from_rows`), as the JAX package
+    names it.  The render paths that differentiate build their table with
+    `rows_vjp.frame_params` and gather it with `gather_from_rows`."""
     return gather_from_rows(param_rows(act, cfg), topo, cfg, impl)
 
 
@@ -534,11 +535,11 @@ def bin_gaussians(act: ActivatedGaussians, w2c, proj, width: int,
                   capacity_padded: int, row_offset: int = 0,
                   row_stride: int = 1) -> BinnedScene:
     """Build the chunked, depth-sorted per-tile Gaussian lists in one call:
-    `bin_topology` (index structure, no gradient) then `gather_chunks` (the
-    gradient path).  Callers that render many frames of one camera hold
-    the topology and call `gather_chunks` per frame instead.  The reduce
-    plan is built only when grad is enabled (without it the chunks are
-    constants and nothing reads the plan)."""
+    `bin_topology` (index structure, no gradient) then `gather_chunks`.
+    Callers that render many frames of one camera hold the topology and
+    gather per frame instead.  The reduce plan is built only when grad is
+    enabled (without it the chunks are constants and nothing reads the
+    plan)."""
     topo = bin_topology(act, w2c, proj, width, height, cfg, capacity,
                         capacity_padded, row_offset, row_stride,
                         with_reduce_plan=torch.is_grad_enabled())

@@ -26,14 +26,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import DEFAULT_CONFIG, RenderConfig
+from ..config import DEFAULT_CONFIG, RenderConfig, resolve_impl
 from ..hybrid.mesh import MeshScene
 from ..hybrid.pipeline import (HybridConfig, _DeviceScene, _shade_local,
                                _surface_attributes)
 from ..models.gaussians import ActivatedGaussians, GaussianModel
 from ..ops.kernels import particle_response
-from .binning import bin_gaussians, plan_capacity, tile_rays, untile
-from .pallas_forward import forward_dispatch, resolve_impl
+from .binning import (bin_topology, binned_scene, gather_from_rows,
+                      plan_capacity, tile_rays, untile)
+from .pallas_forward import forward_dispatch
+from .rows_vjp import frame_params
 from .tile_math import ACC_DEPTH, ACC_HITS, ACC_T
 from .tiled import _camera_mats
 
@@ -172,19 +174,21 @@ def render_combined(model: GaussianModel, scene: MeshScene, camera,
     """
     device = model.device
     impl = resolve_impl(impl, device)
+    grad = torch.is_grad_enabled()   # the gather's backward reads the plan
     width, height = camera.width, camera.height
     dev = _DeviceScene(scene, hcfg, device)
-    act = model.activate()
+    act, rows64 = frame_params(model, cfg)
     with torch.no_grad():
-        shadow_act = (ActivatedGaussians(*(x.detach() for x in act))
-                      if gaussian_shadows else None)
-        mesh_rgb, t_mesh = _mesh_pass(dev, hcfg, camera,
-                                      shadow_act=shadow_act, cfg=cfg)
+        mesh_rgb, t_mesh = _mesh_pass(
+            dev, hcfg, camera, shadow_act=act if gaussian_shadows else None,
+            cfg=cfg)
         w2c, proj = _camera_mats(camera)
         if capacity is None:
             capacity = plan_capacity(act, w2c, proj, width, height, cfg)
         rays = tile_rays(camera, cfg, device, tmax_clip=t_mesh, impl=impl)
-    binned = bin_gaussians(act, w2c, proj, width, height, cfg, *capacity)
+        topo = bin_topology(act, w2c, proj, width, height, cfg, *capacity,
+                            with_reduce_plan=grad)
+    binned = binned_scene(gather_from_rows(rows64, topo, cfg, impl), topo)
     acc = forward_dispatch(binned, rays, cfg, impl)
     img = untile(acc, width, height, cfg.tile_size)
 

@@ -28,7 +28,6 @@ import torch
 
 from .. import _build
 from ..config import IMPLS, RenderConfig
-from ..config import resolve_impl  # noqa: F401  (its callers import it here)
 from ..ops.kernels import gray_cutoff
 from ..utils.profiling import span
 from .binning import BinnedScene

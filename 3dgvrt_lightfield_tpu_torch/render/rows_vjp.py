@@ -1,111 +1,106 @@
-"""Hand-derived VJP of the parameter layer: GaussianModel -> rows64.
+"""The parameter layer of a frame: GaussianModel -> (activated view, rows64).
 
-Counterpart of the JAX package's `render/rows_vjp.py`.
-`rows64_from_model(model, cfg)` equals `param_rows(model.activate(), cfg)`;
-as a `torch.autograd.Function` its backward is the chain rule written out in
-flat (N,) column arithmetic (prefolded frame M = diag(1/s) R^T, b = M mean,
-quaternion rotation and normalization, exp/sigmoid activations) instead of
-autograd's graph over dozens of small (N, k) intermediates.
+Counterpart of the JAX package's `render/rows_vjp.py`.  `frame_params`
+activates the model once, without grad, for binning and culling, and builds
+the (N+1, 64) table from that view; with a gradient to take, the table's
+backward is `_Rows64`'s: the chain rule written out by hand (prefolded
+frame M = diag(1/s) R^T, b = M mean, quaternion rotation and
+normalization, exp/sigmoid activations) in ~60 launches over (N, 3) and
+(N, 3, 3) tensors, where autograd's graph of the same chain takes ~280 ops
+over small (N, k) intermediates and keeps them from the forward.  Every
+render path that differentiates w.r.t. the model builds its table here.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from ..config import RenderConfig
-from ..models.gaussians import GaussianModel, activate_leaves
+from ..models.gaussians import (ActivatedGaussians, GaussianModel,
+                                activate_leaves)
 from ..utils.profiling import span
 from .binning import param_rows
 
 
 class _Rows64(torch.autograd.Function):
+    """`rows`, built from the leaves outside, with the leaves' backward."""
+
     @staticmethod
-    def forward(ctx, cfg: RenderConfig, means, scales_log, quats,
-                opacity_logit, sh_dc, sh_rest):
+    def forward(ctx, rows, means, scales_log, quats, opacity_logit, sh_dc,
+                sh_rest):
         ctx.save_for_backward(means, scales_log, quats, opacity_logit)
-        return param_rows(activate_leaves(means, scales_log, quats,
-                                          opacity_logit, sh_dc, sh_rest), cfg)
+        return rows
 
     @staticmethod
     @span("gvrt.param_table.bwd")
     def backward(ctx, g):
-        means, scales_log, quats, opacity_logit = ctx.saved_tensors
-        n = means.shape[0]
-        gt = g[:n].t()                               # (64, N): columns as rows
-        col = lambda j: gt[j]                        # noqa: E731
+        m, scales_log, quats, opacity_logit = ctx.saved_tensors
+        n = m.shape[0]
+        g = g[:n]
+        gM = g[:, 0:9].reshape(n, 3, 3)        # gM[i, k]: d M[i, k]
+        gb = g[:, 9:12]
 
-        # --- recompute the (cheap, 1D) forward intermediates ---
-        mt, slt, qt = means.t(), scales_log.t(), quats.t()
-        u = [torch.exp(-slt[i]) for i in range(3)]   # inv_scales columns
-        qw, qx, qy, qz = qt[0], qt[1], qt[2], qt[3]
-        qn2 = qw * qw + qx * qx + qy * qy + qz * qz
+        # --- recompute the frame: u = 1/s, the unit quaternion (w, v), R ---
+        u = torch.exp(-scales_log)
         # exact 1/sqrt, as normalize_quat's forward divides exactly
-        qinv = 1.0 / torch.sqrt(qn2)
-        w, x, y, z = qw * qinv, qx * qinv, qy * qinv, qz * qinv
-        rot = [1.0 - 2.0 * (y * y + z * z), 2.0 * (x * y - w * z),
-               2.0 * (x * z + w * y),
-               2.0 * (x * y + w * z), 1.0 - 2.0 * (x * x + z * z),
-               2.0 * (y * z - w * x),
-               2.0 * (x * z - w * y), 2.0 * (y * z + w * x),
-               1.0 - 2.0 * (x * x + y * y)]          # rot9 columns, row-major
-        t = [rot[i] * mt[0] + rot[3 + i] * mt[1] + rot[6 + i] * mt[2]
-             for i in range(3)]                      # t_i = (R^T mean)_i
+        qinv = 1.0 / torch.sqrt((quats * quats).sum(1, keepdim=True))
+        qn = quats * qinv
+        w, v = qn[:, 0:1], qn[:, 1:4]
+        # R = (1 - 2 v.v) I + 2 v v^T + 2 w [v]x, quat_to_rot9's matrix
+        a, b, c = (2.0 * w * v).unbind(1)
+        zero = torch.zeros_like(a)
+        R = (2.0 * v)[:, :, None] * v[:, None, :] + torch.stack(
+            [zero, -c, b, c, zero, -a, -b, a, zero], dim=1).view(n, 3, 3)
+        diag = R.diagonal(dim1=1, dim2=2)
+        diag += 1.0 - diag.sum(1, keepdim=True)
+        Rt = R.transpose(1, 2)                 # Rt[i, k] = R[k, i]
 
-        # --- chain rule, all (N,) columns ---
-        gm = [[col(i * 3 + k) for k in range(3)] for i in range(3)]
-        gb = [col(9 + i) for i in range(3)]
-        # d inv_s_i = sum_k gm[i][k] R[k,i] + gb[i] t_i ;  d sl_i = -u_i d u_i
-        d_sl = [-u[i] * (sum(gm[i][k] * rot[3 * k + i] for k in range(3))
-                         + gb[i] * t[i]) for i in range(3)]
-        # d R[k,i] = gm[i][k] u_i + gb[i] u_i m_k
-        dR = [None] * 9
-        for i in range(3):
-            for k in range(3):
-                dR[3 * k + i] = gm[i][k] * u[i] + gb[i] * u[i] * mt[k]
-        # d m_k = sum_i gb[i] u_i R[k,i]
-        d_m = [sum(gb[i] * u[i] * rot[3 * k + i] for i in range(3))
-               for k in range(3)]
+        # --- chain rule: M[i, k] = u_i R[k, i], b_i = u_i (R^T m)_i ---
+        t = (Rt * m[:, None, :]).sum(2)
+        d_sl = -u * ((gM * Rt).sum(2) + gb * t)   # d u_i, then d sl = -u du
+        ug = u * gb
+        d_m = (R * ug[:, None, :]).sum(2)   # d m_k = sum_i R[k,i] u_i gb_i
+        # dRt[i, k] = d R[k, i] = u_i gM[i, k] + u_i gb_i m_k
+        dRt = u[:, :, None] * gM + ug[:, :, None] * m[:, None, :]
+        del R, Rt, t, ug
 
-        # quaternion backward: dR -> d(normalized quat), then normalization
-        dR00, dR01, dR02, dR10, dR11, dR12, dR20, dR21, dR22 = dR
-        dw = 2.0 * (-dR01 * z + dR02 * y + dR10 * z - dR12 * x
-                    - dR20 * y + dR21 * x)
-        dx = 2.0 * (dR01 * y + dR02 * z + dR10 * y - 2.0 * dR11 * x
-                    - dR12 * w + dR20 * z + dR21 * w - 2.0 * dR22 * x)
-        dy = 2.0 * (-2.0 * dR00 * y + dR01 * x + dR02 * w + dR10 * x
-                    + dR12 * z - dR20 * w + dR21 * z - 2.0 * dR22 * y)
-        dz = 2.0 * (-2.0 * dR00 * z - dR01 * w + dR02 * x + dR10 * w
-                    - 2.0 * dR11 * z + dR12 * y + dR20 * x + dR21 * y)
+        # quaternion backward, R's formula above:  d w = 2 s.v,
+        # d v = 2 (dR + dR^T) v - 4 tr(dR) v + 2 w s, s = vee(dR - dR^T)
+        asym = dRt.transpose(1, 2) - dRt
+        s = torch.stack([asym[:, 2, 1], asym[:, 0, 2], asym[:, 1, 0]], dim=1)
+        tr = dRt.diagonal(dim1=1, dim2=2).sum(1, keepdim=True)
+        sym = ((dRt + dRt.transpose(1, 2)) * v[:, None, :]).sum(2)
+        dv = 2.0 * (sym + w * s) - 4.0 * tr * v
+        dw = 2.0 * (s * v).sum(1, keepdim=True)
+        del asym, s, sym, dRt
         # qn = q / |q|:  dq = (dqn - qn (qn . dqn)) / |q|
-        dot = w * dw + x * dx + y * dy + z * dz
-        d_q = [(dw - w * dot) * qinv, (dx - x * dot) * qinv,
-               (dy - y * dot) * qinv, (dz - z * dot) * qinv]
+        dqn = torch.cat([dw, dv], dim=1)
+        d_q = (dqn - qn * (qn * dqn).sum(1, keepdim=True)) * qinv
 
         # opacity: density = sigmoid(ol); column 12 is its only consumer
         sig = torch.sigmoid(opacity_logit)
-        d_ol = col(12) * sig * (1.0 - sig)
+        d_ol = g[:, 12] * sig * (1.0 - sig)
 
         # SH: rows64 columns 16 + 16 c + j are channel-major [dc_c | rest_c]
-        d_shdc = torch.stack([col(16), col(32), col(48)], dim=1)
-        rest_cols = [16 + 16 * c + 1 + r for r in range(15) for c in range(3)]
-        d_shrest = g[:n, rest_cols].reshape(n, 15, 3)
-
-        return (None, torch.stack(d_m, dim=1), torch.stack(d_sl, dim=1),
-                torch.stack(d_q, dim=1), d_ol, d_shdc, d_shrest)
+        sh = g[:, 16:64].reshape(n, 3, 16)
+        return (None, d_m, d_sl, d_q, d_ol, sh[:, :, 0],
+                sh[:, :, 1:].transpose(1, 2))
 
 
-@span("gvrt.param_table")
-def rows64_from_model(model: GaussianModel, cfg: RenderConfig) -> torch.Tensor:
-    """Fused (N+1, 64) parameter table straight from the raw model.
+def frame_params(model: GaussianModel, cfg: RenderConfig
+                 ) -> Tuple[ActivatedGaussians, torch.Tensor]:
+    """(act, rows64): the model activated once without grad, which binning
+    and culling read, and the (N+1, 64) table `param_rows(act, cfg)`.
 
-    Forward is exactly `param_rows(model.activate(), cfg)`; the backward is
-    the hand-derived column chain of the module doc, so the six leaves'
-    `.grad` fill without autograd's graph of the activation chain.  Used
-    by every differentiated render path that holds a topology.  Without a
-    gradient to take (grad off, or no leaf needs one) it is the bare
-    forward."""
+    The table's bits are `param_rows(model.activate(), cfg)`'s.  With grad
+    on and a leaf that needs a gradient, the table carries `_Rows64`'s
+    hand-derived backward to the six leaves; otherwise it is a constant."""
     leaves = model.leaves()
-    if not (torch.is_grad_enabled()
-            and any(leaf.requires_grad for leaf in leaves)):
-        return param_rows(activate_leaves(*leaves), cfg)
-    return _Rows64.apply(cfg, *leaves)
+    with torch.no_grad():
+        act = activate_leaves(*leaves)
+        rows = param_rows(act, cfg)
+    if torch.is_grad_enabled() and any(p.requires_grad for p in leaves):
+        rows = _Rows64.apply(rows, *leaves)
+    return act, rows

@@ -1,9 +1,10 @@
 """High-level tiled renderer: binning + fused kernel + image assembly.
 
 `TiledRenderer.plan` measures pair counts to size the static capacities
-(pairs, padded slots, gradient-reduce rows), `render` bins the scene for the
-camera, gathers the per-pair parameter rows, runs the tile kernel and
-untiles the image.  `bind` holds one camera's topology so `render_bound`
+(pairs, padded slots, gradient-reduce rows), `render` builds the frame's
+parameter table (`rows_vjp.frame_params`), bins the scene for the camera,
+gathers the per-pair parameter rows, runs the tile kernel and untiles the
+image.  `bind` holds one camera's topology and rays so `render_bound`
 skips the binning pass.
 
 Everything here runs on the card unless the caller passes ``device="cpu"``.
@@ -20,15 +21,15 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import DEFAULT_CONFIG, RenderConfig, resolve_device
+from ..config import (DEFAULT_CONFIG, RenderConfig, resolve_device,
+                      resolve_impl)
 from ..models.gaussians import GaussianModel
 from ..utils.profiling import count, span
 from .binning import (bin_topology, binned_scene, frame_cull_table,
-                      gather_chunks, gather_from_rows,
-                      plan_capacity_from_table,
+                      gather_from_rows, plan_capacity_from_table,
                       plan_reduce_capacity_from_table, tile_rays, untile)
-from .pallas_forward import forward_dispatch, resolve_impl
-from .rows_vjp import rows64_from_model
+from .pallas_forward import forward_dispatch
+from .rows_vjp import frame_params
 from .tile_math import ACC_DEPTH, ACC_HITS, ACC_T
 
 
@@ -52,7 +53,7 @@ def _acc_outputs(acc, width, height, cfg, topo):
 
 
 class TiledRenderer:
-    """Reusable tiled render pipeline with cached capacity plan and rays.
+    """Reusable tiled render pipeline with a held capacity plan.
 
     One instance serves any camera of the same (width, height).  `device`
     defaults to CUDA (and raises without it); `impl` is "auto" (the kernel
@@ -73,7 +74,6 @@ class TiledRenderer:
         #: static row count of the gradient-reduce layout (0: derived from
         #: the pair capacity; set by plan())
         self.capacity_reduce = 0
-        self._ray_cache = {}
         self._bound = None  # (topology, rays) from bind()
 
     def _check_model(self, model: GaussianModel):
@@ -130,23 +130,13 @@ class TiledRenderer:
                             with_reduce_plan=with_reduce_plan)
 
     def _rays(self, camera):
-        # value-based key: id() of a collected camera can be reused and would
-        # silently serve another camera's rays
-        key = camera.content_key()
-        if key not in self._ray_cache:
-            count("gvrt.rays.built")
-            if len(self._ray_cache) > 64:
-                self._ray_cache.clear()
-            self._ray_cache[key] = tile_rays(camera, self.cfg, self.device,
-                                             impl=self.impl)
-        else:
-            count("gvrt.rays.cache_hit")
-        return self._ray_cache[key]
+        count("gvrt.rays.built")
+        return tile_rays(camera, self.cfg, self.device, impl=self.impl)
 
-    def _render_once(self, act, camera):
+    def _render_once(self, act, rows64, camera):
         # a frame rendered without grad needs no gradient-reduce plan
         topo = self._topology(act, camera, torch.is_grad_enabled())
-        chunks = gather_chunks(act, topo, self.cfg, self.impl)
+        chunks = gather_from_rows(rows64, topo, self.cfg, self.impl)
         acc = forward_dispatch(binned_scene(chunks, topo), self._rays(camera),
                                self.cfg, self.impl)
         return _acc_outputs(acc, self.width, self.height, self.cfg, topo)
@@ -161,11 +151,11 @@ class TiledRenderer:
         self._check_model(model)
         if self.capacity is None:
             self.plan(model, [camera])
-        act = model.activate()
-        out = self._render_once(act, camera)
+        act, rows64 = frame_params(model, self.cfg)
+        out = self._render_once(act, rows64, camera)
         if int(out["overflow"]) > 0:
             self._replan_merged(model, camera)
-            out = self._render_once(act, camera)
+            out = self._render_once(act, rows64, camera)
         return out
 
     @torch.no_grad()
@@ -189,13 +179,12 @@ class TiledRenderer:
         """Render against the topology held by `bind`: one parameter gather
         plus the tile kernel.  Exact for the bound model; culling and depth
         order go stale if its parameters move (re-`bind` then), while
-        gradients stay exact for this forward.  The parameter table comes
-        from `rows64_from_model`, whose backward is hand-derived."""
+        gradients stay exact for this forward."""
         if self._bound is None:
             raise RuntimeError("call bind(model, camera) first")
         self._check_model(model)
         topo, rays = self._bound
-        chunks = gather_from_rows(rows64_from_model(model, self.cfg), topo,
+        chunks = gather_from_rows(frame_params(model, self.cfg)[1], topo,
                                   self.cfg, self.impl)
         acc = forward_dispatch(binned_scene(chunks, topo), rays, self.cfg,
                                self.impl)

@@ -19,10 +19,11 @@ from typing import List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import DEFAULT_CONFIG, RenderConfig, resolve_device
+from ..config import (DEFAULT_CONFIG, RenderConfig, resolve_device,
+                      resolve_impl)
 from ..io.cameras import Camera
 from ..render import binning
-from ..render.pallas_forward import forward_dispatch, resolve_impl
+from ..render.pallas_forward import forward_dispatch
 from ..render.tiled import _camera_mats
 from ..utils.profiling import span
 

@@ -25,12 +25,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..config import DEFAULT_CONFIG, RenderConfig, resolve_device
+from ..config import (DEFAULT_CONFIG, RenderConfig, resolve_device,
+                      resolve_impl)
 from ..models.gaussians import GaussianModel
 from ..parallel.sharding import (CameraBatch, Mesh, _render_one,
                                 average_gradients, local_cameras)
 from ..render.banded import BandedRenderer
-from ..render.pallas_forward import resolve_impl
+from ..render.rows_vjp import frame_params
 from ..utils.profiling import span
 
 
@@ -217,9 +218,11 @@ def _batch_backward(model: GaussianModel, cams: CameraBatch,
     b = cams.rays.shape[0]
     losses = []
     for i in range(b):
-        img = _render_one(model.activate(), cams.w2c[i], cams.proj[i],
-                          cams.rays[i], width, height, cfg, cap, cap_pad,
-                          impl)
+        # no local holds the table or the activated view: the backward
+        # needs neither, and the step's peak would carry them
+        img = _render_one(*frame_params(model, cfg), cams.w2c[i],
+                          cams.proj[i], cams.rays[i], width, height, cfg,
+                          cap, cap_pad, impl)
         loss = _image_loss(img[..., 0:3], targets[i], tc)
         with span("gvrt.backward"):
             (loss / b).backward()

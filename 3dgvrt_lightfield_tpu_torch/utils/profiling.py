@@ -18,11 +18,10 @@ spans and counters:
     unit (frames and steps are roots: each root span starts a new unit),
     its host times and, where CUDA is in use, a pair of timing events on
     the current stream, resolved only when read.  A span opened inside one
-    of its own name counts once.  `open_in_backward` and
-    `close_in_backward` bracket a stretch of autograd's own backward in a
-    span.  While a root span records on a card, CUDA's sync debug mode
-    counts the calls that wait for the card into `gvrt.host_syncs`.
-    `recorded()` reads the record as a table, `reset()` empties it;
+    of its own name counts once.  While a root span records on a card,
+    CUDA's sync debug mode counts the calls that wait for the card into
+    `gvrt.host_syncs`.  `recorded()` reads the record as a table,
+    `reset()` empties it;
   * `FrameTimer`: steady-state frame timing with a warmup, reporting
     mean/best/worst ms and fps, with a device fence per frame;
   * `device_sync(x)`: the fence, a device-to-host read of one element of
@@ -95,12 +94,12 @@ class _SyncWatch:
 
 class _Frame:
     __slots__ = ("name", "id", "parent", "unit", "rf", "t0", "ev0",
-                 "merged", "stack", "syncs")
+                 "merged", "syncs")
 
 
 def _enter(name: str):
-    """Open the span `name` on this thread; its frame, or None where it
-    merges into an open span of its own name."""
+    """Open the span `name` on this thread, or merge it into the open span
+    of its own name."""
     global _open, _unit, _unit_stack
     stack = getattr(_local, "stack", None)
     if stack is None:
@@ -109,7 +108,7 @@ def _enter(name: str):
         _open += 1
         if stack and stack[-1].name == name:
             stack[-1].merged += 1
-            return None
+            return
         if stack:
             parent = stack[-1]
         else:
@@ -119,7 +118,7 @@ def _enter(name: str):
             _unit_stack = stack
             _roots[name] = _roots.get(name, 0) + 1
         f = _Frame()
-        f.name, f.id, f.merged, f.stack = name, next(_ids), 0, stack
+        f.name, f.id, f.merged = name, next(_ids), 0
         f.parent = None if parent is None else parent.id
         f.unit = _unit
     f.rf = _autograd_profiler.record_function(name)
@@ -132,20 +131,15 @@ def _enter(name: str):
         f.ev0.record()
     f.t0 = time.perf_counter()
     stack.append(f)
-    return f
 
 
 def _leave(name: str):
-    stack = getattr(_local, "stack", None)
-    if stack and stack[-1].name == name:   # else entered while off
-        _close(stack[-1])
-
-
-def _close(f: _Frame):
     global _open
+    stack = getattr(_local, "stack", None)
+    if not stack or stack[-1].name != name:   # entered while off
+        return
+    f = stack[-1]
     with _lock:
-        if not f.stack or f.stack[-1] is not f:
-            return   # closed already
         _open -= 1
         if f.merged:
             f.merged -= 1
@@ -155,7 +149,7 @@ def _close(f: _Frame):
     if f.ev0 is not None:
         ev1 = torch.cuda.Event(enable_timing=True)
         ev1.record()
-    f.stack.pop()
+    stack.pop()
     f.rf.__exit__(None, None, None)
     if f.syncs is not None:
         f.syncs.close()
@@ -203,54 +197,6 @@ def span(name: str) -> _Span:
     if s is None:
         s = _spans[name] = _Span(name)
     return s
-
-
-class _OpenInBackward(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, name, x):
-        ctx.name = name
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        if _autograd_profiler._is_profiler_enabled:
-            f = _enter(ctx.name)
-            if f is not None:   # closed at the latest with the backward
-                torch.autograd.Variable._execution_engine.queue_callback(
-                    lambda: _close(f))
-        return None, g
-
-
-class _CloseInBackward(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, name, *xs):
-        ctx.name = name
-        return tuple(x.view_as(x) for x in xs)
-
-    @staticmethod
-    def backward(ctx, *gs):
-        if _open:
-            _leave(ctx.name)
-        return (None,) + gs
-
-
-def _bracketed(xs) -> bool:
-    return (_autograd_profiler._is_profiler_enabled
-            and torch.is_grad_enabled() and any(x.requires_grad for x in xs))
-
-
-def open_in_backward(name: str, x: torch.Tensor) -> torch.Tensor:
-    """`x`, whose gradient, once autograd has it, opens the span `name`
-    (while a profiler records; otherwise `x` itself): the start of a
-    stretch of autograd's own backward that `close_in_backward` ends."""
-    return _OpenInBackward.apply(name, x) if _bracketed([x]) else x
-
-
-def close_in_backward(name: str, *xs: torch.Tensor) -> tuple:
-    """`xs`, whose gradients, once autograd has them all, close the span
-    `name` that `open_in_backward` opened (while a profiler records;
-    otherwise `xs` themselves)."""
-    return _CloseInBackward.apply(name, *xs) if _bracketed(xs) else xs
 
 
 def count(name: str, n=1):

@@ -89,7 +89,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      read bit for bit as the NumPy reader reads it, both timed;
   5. the full-width training window (bench.py's protocol): plan with the
      reduce capacity, one topology refresh with the reduce plan, then 10
-     steps of rows64_from_model -> gather_from_rows -> forward_dispatch ->
+     steps of frame_params -> gather_from_rows -> forward_dispatch ->
      L2 loss against 0.3 in tiled space -> backward (K2, K3) -> SGD with
      lr 1e-12, launch counts read around it; then its CUDA-event time and
      the kernels' times at the frame's shapes; K2 with the ray cotangents
@@ -306,12 +306,14 @@ def mesh_rank(rank, ply, init, out_dir, device="cuda:0"):
     sys.path.insert(0, ROOT)
     import gvrt_tpu_torch as gt
     from gvrt_tpu_torch.app import _orbit_cameras
+    from gvrt_tpu_torch.config import resolve_impl
     from gvrt_tpu_torch.models.gaussians import LEAVES
     from gvrt_tpu_torch.parallel import init_distributed, make_mesh
     from gvrt_tpu_torch.parallel import sharding as sh
     from gvrt_tpu_torch.render import pallas_forward as pf
     from gvrt_tpu_torch.render import pallas_vjp as pv
     from gvrt_tpu_torch.render import segreduce as sr
+    from gvrt_tpu_torch.render.rows_vjp import frame_params
     from gvrt_tpu_torch.render.tiled import TiledRenderer
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -341,10 +343,10 @@ def mesh_rank(rank, ply, init, out_dir, device="cuda:0"):
         with torch.no_grad():
             ms, imgs, n = counted(lambda: sh.render_batch_sharded(
                 model, batch, mesh, FULL_W, FULL_H, base, *cap))
-            act = model.activate()
+            act, rows = frame_params(model, base)
             want = torch.stack([sh._render_one(
-                act, batch.w2c[i], batch.proj[i], batch.rays[i], FULL_W,
-                FULL_H, base, *cap, pf.resolve_impl("auto", dev))
+                act, rows, batch.w2c[i], batch.proj[i], batch.rays[i],
+                FULL_W, FULL_H, base, *cap, resolve_impl("auto", dev))
                 for i in range(len(cams))])
             out["batch"] = {"ms": ms, "launches": n,
                             "max_abs": float((imgs - want).abs().max()),
@@ -1029,7 +1031,7 @@ def garden_scene(gt, torch, dev):
     return model, gt.Camera.from_fovy(FULL_W, FULL_H, GARDEN_FOVY, np.eye(4))
 
 
-def garden_window(gt, torch, dev, bd, binning, pf, sr, rows64_from_model,
+def garden_window(gt, torch, dev, bd, binning, pf, sr, frame_params,
                   reset_launches, launches, event_ms, name, power):
     """The garden-scale banded training window: the JAX package's BASELINE
     config[2] scene (scripts/config2_scale.py:49-62, drawn from a
@@ -1127,7 +1129,7 @@ def garden_window(gt, torch, dev, bd, binning, pf, sr, rows64_from_model,
     topo = topos[0]
     rays = binning.band_rays(cam, base, GARDEN_BANDS, dev, mode="contig")[0]
     with torch.no_grad():
-        rows = rows64_from_model(model, base)
+        rows = frame_params(model, base)[1]
         chunks = binning.gather_from_rows(rows, topo, base)
     chunks.requires_grad_()
     acc = pf.forward_dispatch(binning.binned_scene(chunks, topo), rays, base,
@@ -1973,7 +1975,7 @@ def main():
     from gvrt_tpu_torch.render import pallas_forward as pf
     from gvrt_tpu_torch.render import pallas_vjp as pv
     from gvrt_tpu_torch.render import segreduce as sr
-    from gvrt_tpu_torch.render.rows_vjp import rows64_from_model
+    from gvrt_tpu_torch.render.rows_vjp import frame_params
     from gvrt_tpu_torch.render.tiled import TiledRenderer, _camera_mats
 
     def reset_launches():
@@ -2375,7 +2377,7 @@ def main():
             topo = make_topo(m)
             first = None
             for i in range(TRAIN_K):
-                rows = rows64_from_model(m, base)
+                rows = frame_params(m, base)[1]
                 chunks = binning.gather_from_rows(rows, topo, base, "cuda")
                 if capture and i == 0:
                     chunks.register_hook(
@@ -2429,7 +2431,7 @@ def main():
         # the training kernels alone, at the frame's shapes
         with torch.no_grad():
             chunks_t = binning.gather_from_rows(
-                rows64_from_model(train_model, base), topo, base, "cuda")
+                frame_params(train_model, base)[1], topo, base, "cuda")
             scene_t = binning.binned_scene(chunks_t, topo)
             res_ms = cuda_ms(lambda: pf.tile_forward_residual(
                 chunks_t, full_rays, topo.tile_counts, base))
@@ -2609,7 +2611,7 @@ def main():
 
         def slice_grads(impl):
             def loss_fn(m):
-                chunks = binning.gather_from_rows(rows64_from_model(m, base),
+                chunks = binning.gather_from_rows(frame_params(m, base)[1],
                                                   topo, base, impl)
                 part_s = binning.binned_scene(
                     chunks[sc0:sc1], topo._replace(
@@ -2868,7 +2870,7 @@ def main():
     # ---- 10. the garden-scale banded training window ----------------------
     (k4_ms, k4_plain_ms, k4_lib_ms, k4_b_ms, k4_b_by, k4_err, k4_table,
      garden_launches, garden_times, *garden_errs) = garden_window(
-        gt, torch, dev, bd, binning, pf, sr, rows64_from_model,
+        gt, torch, dev, bd, binning, pf, sr, frame_params,
         reset_launches, launches, event_ms, name, power)
     k4_err = max(k4_errs + [k4_err])
     k4_table["max_abs_err"] = max(k4_table_errs + [k4_table["max_abs_err"]])

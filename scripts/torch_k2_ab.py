@@ -149,7 +149,7 @@ def frame_garden(gt, torch, dev):
     import chip_smoke
     from gvrt_tpu_torch.render import banded as bd
     from gvrt_tpu_torch.render import binning
-    from gvrt_tpu_torch.render.rows_vjp import rows64_from_model
+    from gvrt_tpu_torch.render.rows_vjp import frame_params
     cfg = gt.DEFAULT_CONFIG
     model, cam = chip_smoke.garden_scene(gt, torch, dev)
     model = model.sorted_for_camera(cam, cfg)
@@ -159,7 +159,7 @@ def frame_garden(gt, torch, dev):
     topo = r.bind(model, cam)[0]
     rays = r._bound[1][0]
     with torch.no_grad():
-        chunks = binning.gather_from_rows(rows64_from_model(model, cfg), topo,
+        chunks = binning.gather_from_rows(frame_params(model, cfg)[1], topo,
                                           cfg)
     return chunks, rays, topo.tile_counts, cfg, 0.3
 

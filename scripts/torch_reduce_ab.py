@@ -103,7 +103,7 @@ def pair_gauss_presort(torch, topo):
     from gvrt_tpu_torch.render import binning
     counts = topo.gauss_counts.long()
     n = counts.shape[0]
-    return binning._scatter_cummax_fill(
+    return binning._scatter_max_fill(
         topo.pair_pos.shape[0], topo.gauss_offsets.long(),
         torch.arange(n, device=counts.device), counts > 0)
 
@@ -152,7 +152,7 @@ def frame_300k(gt, torch, dev):
     import numpy as np
     import chip_smoke
     from gvrt_tpu_torch.render import binning
-    from gvrt_tpu_torch.render.rows_vjp import rows64_from_model
+    from gvrt_tpu_torch.render.rows_vjp import frame_params
     from gvrt_tpu_torch.render.tiled import TiledRenderer, _camera_mats
     cfg = gt.DEFAULT_CONFIG
     w, h = chip_smoke.FULL_W, chip_smoke.FULL_H
@@ -165,7 +165,7 @@ def frame_300k(gt, torch, dev):
         topo = binning.bin_topology(model.activate(), w2c, proj, w, h, cfg,
                                     *r.capacity,
                                     capacity_reduce=r.capacity_reduce)
-        chunks = binning.gather_from_rows(rows64_from_model(model, cfg),
+        chunks = binning.gather_from_rows(frame_params(model, cfg)[1],
                                           topo, cfg)
     rays = binning.tile_rays(cam, cfg, dev)
     bar = k2_cotangent(torch, chunks, rays, topo.tile_counts, cfg, l1=False)
@@ -177,7 +177,7 @@ def frame_garden(gt, torch, dev):
     import chip_smoke
     from gvrt_tpu_torch.render import banded as bd
     from gvrt_tpu_torch.render import binning
-    from gvrt_tpu_torch.render.rows_vjp import rows64_from_model
+    from gvrt_tpu_torch.render.rows_vjp import frame_params
     cfg = gt.DEFAULT_CONFIG
     model, cam = chip_smoke.garden_scene(gt, torch, dev)
     model = model.sorted_for_camera(cam, cfg)
@@ -187,7 +187,7 @@ def frame_garden(gt, torch, dev):
     topo = r.bind(model, cam)[0]
     rays = r._bound[1][0]
     with torch.no_grad():
-        chunks = binning.gather_from_rows(rows64_from_model(model, cfg), topo,
+        chunks = binning.gather_from_rows(frame_params(model, cfg)[1], topo,
                                           cfg)
     bar = k2_cotangent(torch, chunks, rays, topo.tile_counts, cfg, l1=True)
     del chunks

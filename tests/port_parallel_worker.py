@@ -82,6 +82,7 @@ def _parallel(gt, mesh, inputs):
     one Trainer(mesh) step per optimizer."""
     import torch
     from gvrt_tpu_torch.parallel import sharding as sh
+    from gvrt_tpu_torch.render.rows_vjp import frame_params
     from gvrt_tpu_torch.render.tiled import TiledRenderer
     leaves = {k: inputs[k] for k in gt.models.gaussians.LEAVES}
     out = {}
@@ -94,10 +95,10 @@ def _parallel(gt, mesh, inputs):
     with torch.no_grad():
         out["batch"] = sh.render_batch_sharded(model, batch, mesh, RES, RES,
                                                cfg, *cap).numpy()
-        act = model.activate()
+        act, rows = frame_params(model, cfg)
         out["batch_unsharded"] = torch.stack([sh._render_one(
-            act, batch.w2c[i], batch.proj[i], batch.rays[i], RES, RES, cfg,
-            *cap, "torch") for i in range(BATCH)]).numpy()
+            act, rows, batch.w2c[i], batch.proj[i], batch.rays[i], RES, RES,
+            cfg, *cap, "torch") for i in range(BATCH)]).numpy()
 
     tcfg = cfg_tile(gt)
     cam = gt.Camera.from_fovy(TILE_RES, TILE_RES, 60.0, np.eye(4))

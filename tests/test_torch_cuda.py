@@ -1006,7 +1006,7 @@ def test_frame_on_kernel_rays_matches_plain_rays(cuda):
     with torch.no_grad():
         out = r.render(model, cam)
         assert binning.camera_rays_kernel.launches == before + 1
-        rays_k = r._ray_cache[cam.content_key()]
+        rays_k = r._rays(cam)
         rays_t = binning.tile_rays(cam, BASE, cuda, impl="torch")
         act = model.activate()
         topo = r._topology(act, cam, False)

@@ -22,6 +22,7 @@ from gvrt_tpu.render import binning as jb
 from gvrt_tpu.render import pallas_forward as jpf
 from gvrt_tpu.render import tile_math as jtm
 from gvrt_tpu.render.tiled import _camera_mats
+from gvrt_tpu_torch.config import resolve_impl
 from gvrt_tpu_torch.ops.kernels import particle_response
 from gvrt_tpu_torch.render import binning as tb
 from gvrt_tpu_torch.render import pallas_forward as tpf
@@ -173,12 +174,12 @@ def test_impl_cuda_on_cpu_tensors_raises():
     with pytest.raises(ValueError, match="CUDA"):
         tpf.forward_dispatch(tbinned, trays, cfg, "cuda")
     with pytest.raises(ValueError, match="CUDA"):
-        tpf.resolve_impl("cuda", torch.device("cpu"))
+        resolve_impl("cuda", torch.device("cpu"))
     with pytest.raises(ValueError, match="CUDA"):
         TiledRenderer(16, 16, cfg, impl="cuda", device="cpu")
     with pytest.raises(ValueError, match="unknown impl"):
         tpf.forward_dispatch(tbinned, trays, cfg, "pallas")
-    assert tpf.resolve_impl("auto", torch.device("cpu")) == "torch"
+    assert resolve_impl("auto", torch.device("cpu")) == "torch"
 
 
 @pytest.mark.parametrize("degree", [8, 5, 4, 3, 2, 1, 0])
