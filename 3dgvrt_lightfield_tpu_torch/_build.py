@@ -52,6 +52,10 @@ SIGNATURES = {
         "gvrt_max_scan": ([_P, _P, _L, _P, _P], ctypes.c_int),
         "gvrt_max_scan_scratch_words": ([_L], _L),
     },
+    "param_table": {
+        "gvrt_param_table_forward": ([_P] * 11 + [_L, _P], ctypes.c_int),
+        "gvrt_param_table_backward": ([_P] * 11 + [_L, _P], ctypes.c_int),
+    },
     "segment_reduce_compact": {
         "gvrt_segment_reduce_compact": ([_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                          _P], ctypes.c_int),

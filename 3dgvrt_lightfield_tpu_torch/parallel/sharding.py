@@ -247,7 +247,7 @@ def render_batch_sharded(model: GaussianModel, cams: CameraBatch,
     _check_axis(mesh, axis)
     _check_model(model, mesh)
     impl = resolve_impl(impl, mesh.device)
-    act, rows64 = frame_params(model, cfg)
+    act, rows64 = frame_params(model, cfg, impl)
     local, _ = local_cameras(cams, mesh)
     imgs = torch.stack([
         _render_one(act, rows64, local.w2c[i], local.proj[i], local.rays[i],
@@ -307,7 +307,7 @@ def render_image_tile_sharded(model: GaussianModel, camera, mesh: Mesh,
     _check_model(model, mesh)
     impl = resolve_impl(impl, mesh.device)
     d, width, height = mesh.size, camera.width, camera.height
-    act, rows64 = frame_params(model, cfg)
+    act, rows64 = frame_params(model, cfg, impl)
     w2c, proj = _camera_mats(camera)
     if capacity is None:
         capacity = plan_capacity_sharded(model, camera, d, cfg)

@@ -181,7 +181,7 @@ def _render_banded_bound(model: GaussianModel, topos, rays_bands,
     Per frame: one `frame_params` table, then per band a parameter gather
     and the tile kernel.  Gradients are exact for this forward; culling and
     depth order are as stale as the topologies."""
-    rows64 = frame_params(model, cfg)[1]
+    rows64 = frame_params(model, cfg, impl)[1]
     ts = cfg.tile_size
     imgs = []
     for topo, rays_b in zip(topos, rays_bands):

@@ -177,7 +177,7 @@ def render_combined(model: GaussianModel, scene: MeshScene, camera,
     grad = torch.is_grad_enabled()   # the gather's backward reads the plan
     width, height = camera.width, camera.height
     dev = _DeviceScene(scene, hcfg, device)
-    act, rows64 = frame_params(model, cfg)
+    act, rows64 = frame_params(model, cfg, impl)
     with torch.no_grad():
         mesh_rgb, t_mesh = _mesh_pass(
             dev, hcfg, camera, shadow_act=act if gaussian_shadows else None,

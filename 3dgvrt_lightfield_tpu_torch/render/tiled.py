@@ -151,7 +151,7 @@ class TiledRenderer:
         self._check_model(model)
         if self.capacity is None:
             self.plan(model, [camera])
-        act, rows64 = frame_params(model, self.cfg)
+        act, rows64 = frame_params(model, self.cfg, self.impl)
         out = self._render_once(act, rows64, camera)
         if int(out["overflow"]) > 0:
             self._replan_merged(model, camera)
@@ -184,8 +184,9 @@ class TiledRenderer:
             raise RuntimeError("call bind(model, camera) first")
         self._check_model(model)
         topo, rays = self._bound
-        chunks = gather_from_rows(frame_params(model, self.cfg)[1], topo,
-                                  self.cfg, self.impl)
+        chunks = gather_from_rows(
+            frame_params(model, self.cfg, self.impl)[1], topo, self.cfg,
+            self.impl)
         acc = forward_dispatch(binned_scene(chunks, topo), rays, self.cfg,
                                self.impl)
         return _acc_outputs(acc, self.width, self.height, self.cfg, topo)

@@ -220,7 +220,7 @@ def _batch_backward(model: GaussianModel, cams: CameraBatch,
     for i in range(b):
         # no local holds the table or the activated view: the backward
         # needs neither, and the step's peak would carry them
-        img = _render_one(*frame_params(model, cfg), cams.w2c[i],
+        img = _render_one(*frame_params(model, cfg, impl), cams.w2c[i],
                           cams.proj[i], cams.rays[i], width, height, cfg,
                           cap, cap_pad, impl)
         loss = _image_loss(img[..., 0:3], targets[i], tc)

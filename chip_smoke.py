@@ -7,10 +7,10 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
-  1. set-up: the card's name and power limit, TF32 off, the six kernel
+  1. set-up: the card's name and power limit, TF32 off, the seven kernel
      libraries (tile_forward, tile_backward, camera_rays, max_scan,
-     segment_reduce, segment_reduce_compact) built from csrc/ with nvcc,
-     all at once;
+     param_table, segment_reduce, segment_reduce_compact) built from csrc/
+     with nvcc, all at once;
  1b. the camera-ray kernel (csrc/camera_rays.cu) at
      1920x1088, tile 16, against the plain route on the card (NumPy rays,
      the upload, tile_ray_rows) after a NaN-poisoned allocator: origins
@@ -24,6 +24,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      zeros): against cummax's values after a NaN-poisoned allocator,
      timed beside its byte bound (16 bytes an element) and beside cummax,
      which the port no longer calls on the card;
+ 1d. the parameter-table kernels (csrc/param_table.cu) at 300k and 5M
+     Gaussians, after a NaN-poisoned allocator: the forward's table and
+     activated view bit for bit the plain route's (activate_leaves,
+     param_rows), the backward's six gradients within relative L2 1e-6 of
+     `_Rows64`'s plain backward on a random cotangent; each timed beside
+     the plain route and its byte bound (556 and 536 bytes a Gaussian); a
+     serving frame (phase 3) must launch the forward once and the
+     training window (phase 5) each kernel once a step;
   2. the tile kernels against their plain PyTorch versions on the same
      binned inputs: small scenes at tile_size=8/chunk_size=128, at the
      defaults with log-space transmittance, with another kernel degree, a
@@ -211,6 +219,12 @@ COUNT_BATCH = 512
 TRAIN_K, TRAIN_LR, TRAIN_TARGET = 10, 1e-12, 0.3
 #: bytes the camera-ray kernel writes a ray: 24 f32 rows
 RAY_BYTES = 24 * 4
+#: bytes the parameter-table kernels move a Gaussian: the forward reads the
+#: six leaves (59 f32) and writes the table row (64) and the activated view
+#: (scales, inv_scales, rot9, density: 16); the backward reads the row's
+#: cotangent (64) and the four geometric leaves (11) and writes the six
+#: gradients (59)
+TABLE_FWD_BYTES, TABLE_BWD_BYTES = 4 * (59 + 64 + 16), 4 * (64 + 11 + 59)
 
 FULL_W, FULL_H, FULL_N = 1920, 1088, 300_000
 #: the light field's tile (models/lightfield.py): R = 400 rays per tile
@@ -982,6 +996,78 @@ def scan_phase(gt, torch, dev, name, power):
            "library_ms": cuda_ms(lambda: torch.cummax(x, 0), n=5),
            "bound_ms": roofline(16 * n, 0)[0], "bound_by": "bytes"}
     print(json.dumps({"phase": "max_scan", "card": name,
+                      "power_limit": power, **res,
+                      "seconds": time.time() - t_phase}), flush=True)
+    return res
+
+
+def table_phase(gt, torch, dev, name, power):
+    """Phase 1d: the parameter-table kernels at 300k and 5M Gaussians (the
+    serving frames' scenes) against the plain route on the card, after a
+    NaN-poisoned allocator: the forward's table and activated view bit for
+    bit, the backward's six gradients within relative L2 1e-6 of
+    `_Rows64`'s plain backward on a random cotangent; each kernel timed
+    beside the plain route and its byte bound; returns the kernels line's
+    numbers."""
+    from gvrt_tpu_torch.models.gaussians import activate_leaves
+    from gvrt_tpu_torch.render import binning, rows_vjp
+    fwd, bwd = rows_vjp.param_table_forward, rows_vjp.param_table_backward
+    t_phase = time.time()
+    res = {}
+    for label, make in (("300k", lambda: bench_scene(gt, torch, dev)),
+                        ("5M", lambda: garden_scene(gt, torch, dev)[0])):
+        leaves = tuple(p.detach() for p in make().leaves())
+        n = leaves[0].shape[0]
+
+        def plain_forward():
+            act = activate_leaves(*leaves)
+            return act, binning.param_rows(act, gt.DEFAULT_CONFIG)
+
+        def plain_backward():
+            return rows_vjp._plain_backward(g, *leaves[:4])
+
+        want = plain_forward()
+        poison_allocator(torch, 2 * 4 * 64 * (n + 1), dev)
+        before = (fwd.launches, bwd.launches)
+        got = fwd(*leaves)
+        torch.cuda.synchronize()
+        for field in ("scales", "inv_scales", "rot9", "densities",
+                      "sh_flat"):
+            k, p = getattr(got[0], field), getattr(want[0], field)
+            if not torch.equal(k.view(torch.int32), p.view(torch.int32)):
+                fail(f"param_table forward at {label}: {field} differs from "
+                     f"the plain route")
+        if not torch.equal(got[1].view(torch.int32),
+                           want[1].view(torch.int32)):
+            fail(f"param_table forward at {label}: the table differs from "
+                 f"the plain route")
+        del got, want
+        g = torch.randn((n + 1, 64), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(7))
+        want = plain_backward()
+        poison_allocator(torch, 2 * 4 * 64 * (n + 1), dev)
+        got = bwd(g, leaves)
+        torch.cuda.synchronize()
+        if (fwd.launches, bwd.launches) != (before[0] + 1, before[1] + 1):
+            fail("the parameter-table kernels did not launch once each")
+        errs = [rel_l2(k, p) for k, p in zip(got, want)]
+        if max(errs) > 1e-6 or not all(bool(k.isfinite().all())
+                                       for k in got):
+            fail(f"param_table backward at {label}: relative L2 {errs}")
+        del got, want
+        r = {"n": n, "backward_rel_l2_max": max(errs)}
+        for way, kernel, plain, nbytes in (
+                ("forward", lambda: fwd(*leaves), plain_forward,
+                 TABLE_FWD_BYTES),
+                ("backward", lambda: bwd(g, leaves), plain_backward,
+                 TABLE_BWD_BYTES)):
+            ms = cuda_ms(kernel, n=20)
+            bound = roofline(n * nbytes, 0)[0]
+            r[way] = {"ms": ms, "plain_ms": cuda_ms(plain, n=5),
+                      "bound_ms": bound, "bound_share": bound / ms}
+        res[label] = r
+        del leaves, g
+    print(json.dumps({"phase": "param_table", "card": name,
                       "power_limit": power, **res,
                       "seconds": time.time() - t_phase}), flush=True)
     return res
@@ -1975,6 +2061,7 @@ def main():
     from gvrt_tpu_torch.render import pallas_forward as pf
     from gvrt_tpu_torch.render import pallas_vjp as pv
     from gvrt_tpu_torch.render import segreduce as sr
+    from gvrt_tpu_torch.render import rows_vjp
     from gvrt_tpu_torch.render.rows_vjp import frame_params
     from gvrt_tpu_torch.render.tiled import TiledRenderer, _camera_mats
 
@@ -1984,6 +2071,12 @@ def main():
                    sr.segment_reduce_compact,
                    sr.segment_reduce_compact_table):
             fn.launches = 0
+
+    def table_launches(before=(0, 0)):
+        """(forward, backward) launches of the parameter-table kernels
+        since `before`."""
+        return (rows_vjp.param_table_forward.launches - before[0],
+                rows_vjp.param_table_backward.launches - before[1])
 
     def launches():
         """Each wrapper's count; K4's two modes also summed as K4's."""
@@ -2014,6 +2107,9 @@ def main():
 
     # ---- 1c. the max-scan kernel -----------------------------------------
     scan_res = scan_phase(gt, torch, dev, name, power)
+
+    # ---- 1d. the parameter-table kernels ---------------------------------
+    table_res = table_phase(gt, torch, dev, name, power)
 
     # ---- 2. kernels against plain versions ------------------------------
     def add_training_errs(errs):
@@ -2124,12 +2220,17 @@ def main():
     reset_launches()
     rays_before = binning.camera_rays_kernel.launches
     scan_before = gt.render.scan.max_scan.launches
+    table_before = table_launches()
     with torch.no_grad():  # serving: K1 without the training residual
         out = renderer.render(model, cam)
     torch.cuda.synchronize()
     serve_launches = launches()
     serve_ray_launches = binning.camera_rays_kernel.launches - rays_before
     serve_scan_launches = gt.render.scan.max_scan.launches - scan_before
+    serve_table_launches = table_launches(table_before)
+    if serve_table_launches != (1, 0):
+        fail(f"a serving frame launched the parameter-table kernels "
+             f"{serve_table_launches} times, not (1, 0)")
     if serve_ray_launches != 1:
         fail(f"a serving frame made its rays in {serve_ray_launches} "
              f"camera-ray launches")
@@ -2397,9 +2498,14 @@ def main():
 
         reset_launches()
         scan_before = gt.render.scan.max_scan.launches
+        table_before = table_launches()
         topo, (loss0, hits0, gnorm0) = train_window(train_model, capture=True)
         torch.cuda.synchronize()
         train_launches = launches()
+        train_table_launches = table_launches(table_before)
+        if train_table_launches != (TRAIN_K, TRAIN_K):
+            fail(f"the training window launched the parameter-table kernels "
+                 f"{train_table_launches} times, not {TRAIN_K} each")
         bind_scan_launches = gt.render.scan.max_scan.launches - scan_before
         if bind_scan_launches != 4:
             fail(f"the unbanded bind filled its runs in "
@@ -2985,6 +3091,17 @@ def main():
          "n": scan_res["n"], "ms": scan_res["ms"],
          "bound_ms": scan_res["bound_ms"], "bound_by": "bytes",
          "library_ms": scan_res["library_ms"]},
+        # no TPU kernel: the JAX package builds its table with XLA ops and
+        # its backward by autodiff; the plain versions are the port's
+        # eager routes, times at 5M (300k beside)
+        *({"name": f"param_table_{way}", "route": "cuda",
+           "source": f"{PKG}/csrc/param_table.cu", "replaces": None,
+           "launches": {"serving_frame": serve_table_launches[i],
+                        "training_window": train_table_launches[i]},
+           "n": table_res["5M"]["n"], **table_res["5M"][way],
+           "bound_by": "bytes", "library_ms": None,
+           "at_300k": table_res["300k"][way]}
+          for i, way in enumerate(("forward", "backward"))),
     ]}), flush=True)
     print(json.dumps({"phase": "done", "seconds_after_build":
                       time.time() - t_all}), flush=True)

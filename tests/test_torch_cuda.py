@@ -79,6 +79,18 @@ kernel tolerances):
     alignment.  `bin_topology` with it against the same call on cummax:
     every topology and reduce-plan field equal, at the 300k frame and the
     5M frame with K3's plan and one contiguous band with the compact plan.
+  * The parameter table's kernels (`rows_vjp.param_table_forward`,
+    `param_table_backward`, csrc/param_table.cu) against the plain route
+    on the card, after a NaN-poisoned allocator: the table and every
+    activated field bit for bit at N = 1, 127, 128, 129, 300k and 5M and on
+    extreme leaves (log-scales +-10, opacity logits +-20, quaternions of
+    norm 1e-3), the dummy row exact; each leaf's gradient within relative
+    L2 1e-6 of `_Rows64`'s plain backward, contiguous, bit-identical
+    across runs, the cotangent's row N not read; the 300k and 5M serving
+    topologies from the kernel's view equal to the plain view's; a
+    `Trainer` step's gradients with the kernels within relative L2 1e-6 of
+    the same step on the plain table route; one forward launch a serving
+    frame, one of each a step per camera.
   * Data-parallel training across four cards (skips with fewer): four
     NCCL ranks, one a card, take one `Trainer(mesh)` step of a batch of
     four views (tests/port_parallel_worker.py, mode "data_parallel_cuda");
@@ -1152,6 +1164,264 @@ def test_binning_topology_with_max_scan_is_bit_identical(cuda, name,
         else:
             assert torch.equal(getattr(got, field),
                                getattr(want, field)), field
+
+
+# ---- the parameter table: both kernels against the plain route ---------------
+
+TABLE_SIZES = [1, 127, 128, 129, 300_000, 5_000_000]
+
+
+def _table_model(cuda, n, extreme=False):
+    """n Gaussians drawn on the card.  `extreme`: log-scales of +-10,
+    opacity logits of +-20 and quaternions of norm 1e-3 on alternate
+    Gaussians, with every other leaf as drawn."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    model = gt.random_gaussians(g, n, extent=1.0, device=cuda)
+    if extreme:
+        with torch.no_grad():
+            sign = 1.0 - 2.0 * (torch.arange(n, device=cuda) % 2)
+            model.scales_log[:, 0] = 10.0 * sign
+            model.scales_log[:, 2] = -10.0 * sign
+            model.opacity_logit.copy_(20.0 * sign)
+            q = model.quats[::2]
+            q *= 1e-3 / q.norm(dim=1, keepdim=True)
+    return model
+
+
+def _table_both_ways(model):
+    """(kernel, plain route) activated views and tables of `model`, the
+    kernel's after a NaN-poisoned allocator; the kernel launched once."""
+    from gvrt_tpu_torch.render import rows_vjp
+    leaves = model.leaves()
+    n = model.num_gaussians
+    with torch.no_grad():
+        act_p = gt.models.gaussians.activate_leaves(*leaves)
+        rows_p = binning.param_rows(act_p, BASE)
+        torch.full((2 * 64 * (n + 1),), float("nan"), device=model.device)
+        before = rows_vjp.param_table_forward.launches
+        act_k, rows_k = rows_vjp.param_table_forward(*leaves)
+    torch.cuda.synchronize()
+    assert rows_vjp.param_table_forward.launches == before + 1
+    return (act_k, rows_k), (act_p, rows_p)
+
+
+def _assert_table_bit_equal(got, want, n):
+    (act_k, rows_k), (act_p, rows_p) = got, want
+    assert rows_k.shape == (n + 1, 64) and rows_k.is_contiguous()
+    assert bool(_bit_equal(rows_k, rows_p).all()), "rows"
+    assert act_k.means is act_p.means
+    for field in ("scales", "inv_scales", "rot9", "densities", "sh_flat"):
+        k, p = getattr(act_k, field), getattr(act_p, field)
+        assert k.shape == p.shape, field
+        assert bool(_bit_equal(k, p).all()), field
+    assert act_k.sh_flat.data_ptr() == rows_k[:, 16:].data_ptr()
+    dummy = torch.zeros(64, device=rows_k.device)
+    dummy[[0, 4, 8]] = 1.0
+    assert torch.equal(rows_k[n], dummy)
+
+
+@pytest.mark.parametrize("n", TABLE_SIZES)
+def test_param_table_forward_is_bit_equal_to_the_plain_route(cuda, n):
+    """`param_table_forward` against `activate_leaves` + `param_rows` on the
+    card: the table and every activated field bit for bit, the dummy row
+    the identity frame and zeros, every entry written."""
+    model = (_garden_model(cuda)[0] if n == 5_000_000
+             else _synth_model(cuda)[0] if n == 300_000
+             else _table_model(cuda, n))
+    got, want = _table_both_ways(model)
+    _assert_table_bit_equal(got, want, n)
+    assert bool(got[1].isfinite().all())
+
+
+def test_param_table_forward_on_extreme_leaves(cuda):
+    """Log-scales of +-10, opacity logits of +-20 (densities of 1 and
+    2e-9) and quaternions of norm 1e-3: still bit for bit."""
+    n = 1000
+    model = _table_model(cuda, n, extreme=True)
+    got, want = _table_both_ways(model)
+    _assert_table_bit_equal(got, want, n)
+    assert float(got[0].densities.max()) == 1.0
+    assert float(got[0].densities.min()) < 1e-8
+
+
+def _table_cotangent(n, device, seed=3):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((n + 1, 64), generator=g, device=device)
+
+
+@pytest.mark.parametrize("n", TABLE_SIZES + ["extreme"])
+def test_param_table_backward_matches_the_plain_backward(cuda, n):
+    """`param_table_backward` against `_Rows64`'s plain backward on a random
+    cotangent: each leaf within relative L2 1e-6 (the SH leaves, copies of
+    the cotangent's columns, bit for bit), contiguous in the leaf's shape,
+    every entry written after a NaN-poisoned allocator, two runs
+    bit-identical, and the cotangent's row N not read."""
+    from gvrt_tpu_torch.render import rows_vjp
+    extreme = n == "extreme"
+    n = 1000 if extreme else n
+    model = _table_model(cuda, n, extreme=extreme)
+    leaves = tuple(p.detach() for p in model.leaves())
+    g = _table_cotangent(n, cuda)
+    want = rows_vjp._plain_backward(g, *leaves[:4])
+    before = rows_vjp.param_table_backward.launches
+    torch.full((2 * 64 * (n + 1),), float("nan"), device=cuda)
+    got = rows_vjp.param_table_backward(g, leaves)
+    again = rows_vjp.param_table_backward(g, leaves)
+    g[n] = float("nan")
+    off = rows_vjp.param_table_backward(g, leaves)
+    torch.cuda.synchronize()
+    assert rows_vjp.param_table_backward.launches == before + 3
+    names = gt.models.gaussians.LEAVES
+    for name, leaf, k, k2, k3, p in zip(names, leaves, got, again, off, want):
+        assert k.shape == leaf.shape and k.is_contiguous(), name
+        assert bool(k.isfinite().all()), name
+        assert torch.equal(k, k2) and torch.equal(k, k3), name
+        assert _rel_l2(k, p) <= 1e-6, (name, _rel_l2(k, p))
+    assert torch.equal(got[4], want[4]) and torch.equal(got[5], want[5])
+
+
+def test_param_table_kernels_take_16_byte_aligned_leaves(cuda):
+    """A leaf that is a contiguous view at an offset that is not a multiple
+    of 16 bytes is refused; a cotangent at such an offset is copied first,
+    with the gradients of the aligned one."""
+    from gvrt_tpu_torch.render import rows_vjp
+    n = 129
+    leaves = tuple(p.detach() for p in _table_model(cuda, n).leaves())
+    shifted = torch.empty(n * 3 + 1, device=cuda)[1:].view(n, 3)
+    shifted.copy_(leaves[0])
+    with pytest.raises(ValueError, match="16-byte"):
+        rows_vjp.param_table_forward(shifted, *leaves[1:])
+    with pytest.raises(ValueError, match="16-byte"):
+        rows_vjp.param_table_backward(_table_cotangent(n, cuda),
+                                      (shifted,) + leaves[1:])
+    g = _table_cotangent(n, cuda)
+    g_shifted = torch.empty(g.numel() + 1, device=cuda)[1:].view_as(g)
+    g_shifted.copy_(g)
+    want = rows_vjp.param_table_backward(g, leaves)
+    got = rows_vjp.param_table_backward(g_shifted, leaves)
+    for name, k, w in zip(gt.models.gaussians.LEAVES, got, want):
+        assert torch.equal(k, w), name
+
+
+@pytest.mark.parametrize("name", ["synth300k", "garden5m"])
+def test_serving_topology_from_the_kernel_view_is_bit_identical(cuda, name):
+    """The 300k and 5M serving frames binned from the kernel's activated
+    view and from the plain route's: every topology field equal."""
+    model, cam = (_synth_model if name == "synth300k"
+                  else _garden_model)(cuda)
+    (act_k, _), (act_p, _) = _table_both_ways(model)
+    w, h = cam.width, cam.height
+    r = gt.render.TiledRenderer(w, h, BASE, device=cuda)
+    r.plan(model, [cam])
+    w2c, proj = _camera_mats(cam)
+    with torch.no_grad():
+        got, want = (binning.bin_topology(act, w2c, proj, w, h, BASE,
+                                          *r.capacity,
+                                          with_reduce_plan=False)
+                     for act in (act_k, act_p))
+    assert int(got.overflow) == 0 and int(got.num_pairs) > 0
+    for field in binning.BinTopology._fields:
+        if field != "red":
+            assert torch.equal(getattr(got, field), getattr(want, field)), \
+                field
+
+
+def test_trainer_step_gradients_with_the_table_kernels(cuda, monkeypatch):
+    """An unbanded `Trainer` step of two cameras with the table's kernels
+    against the same step with the plain table route (every other kernel
+    the same): the leaves' gradients within relative L2 1e-6 (the forward
+    is bit-equal, so only the table's backward differs), and the kernels
+    launched once a camera each way."""
+    from gvrt_tpu_torch.render import rows_vjp
+    from gvrt_tpu_torch.train import trainer as trainer_mod
+    g = torch.Generator(device=cuda).manual_seed(21)
+    base = gt.random_gaussians(g, 2000, extent=0.8, device=cuda)
+    with torch.no_grad():
+        base.means[:, 2] -= 3.0
+    cams = [gt.Camera.from_fovy(96, 96, 60.0, np.eye(4)),
+            gt.Camera.from_fovy(96, 96, 55.0, np.eye(4))]
+    batch = gt.parallel.camera_batch(cams, BASE, cuda)
+    targets = 0.3 * torch.ones((2, 96, 96, 3), device=cuda)
+    cap = gt.render.TiledRenderer(96, 96, BASE, device=cuda).plan(base, cams)
+    grads = {}
+    for impl in ("cuda", "torch"):
+        model = gt.GaussianModel(*(p.detach().clone()
+                                   for p in base.leaves()))
+        tr = gt.train.Trainer(96, 96, BASE, gt.train.TrainConfig(), cap,
+                              device=cuda)
+        with monkeypatch.context() as m:
+            if impl == "torch":
+                m.setattr(trainer_mod, "frame_params",
+                          lambda model, cfg, impl: rows_vjp.frame_params(
+                              model, cfg, "torch"))
+            before = (rows_vjp.param_table_forward.launches,
+                      rows_vjp.param_table_backward.launches)
+            tr.step(tr.init(model), batch, targets)
+            torch.cuda.synchronize()
+            launched = (rows_vjp.param_table_forward.launches - before[0],
+                        rows_vjp.param_table_backward.launches - before[1])
+        assert launched == ((2, 2) if impl == "cuda" else (0, 0)), impl
+        grads[impl] = [p.grad.clone() for p in model.leaves()]
+    for name, k, p in zip(gt.models.gaussians.LEAVES, grads["cuda"],
+                          grads["torch"]):
+        assert float(p.abs().max()) > 0, name
+        assert _rel_l2(k, p) <= 1e-6, (name, _rel_l2(k, p))
+
+
+def test_table_kernels_launch_once_a_frame_and_a_step(cuda):
+    """A serving frame launches the forward once and the backward never; an
+    unbanded step of one camera and a banded step of two bands launch each
+    once; the counters `gvrt.param_table.kernel` and
+    `gvrt.param_table.bwd.kernel` count the same, and the plain route's
+    two `gvrt.param_table` spans a frame are one."""
+    from gvrt_tpu_torch.render import rows_vjp
+    from gvrt_tpu_torch.utils import profiling
+    g = torch.Generator(device=cuda).manual_seed(22)
+    model = gt.random_gaussians(g, 2000, extent=0.8, device=cuda)
+    with torch.no_grad():
+        model.means[:, 2] -= 3.0
+    cam = gt.Camera.from_fovy(64, 64, 60.0, np.eye(4))
+    r = gt.render.TiledRenderer(64, 64, BASE, device=cuda)
+    cap = r.plan(model, [cam])
+    tr = gt.train.Trainer(64, 64, BASE, gt.train.TrainConfig(), cap,
+                          device=cuda)
+    state = tr.init(model)
+    batch = gt.parallel.camera_batch([cam], BASE, cuda)
+    target = 0.3 * torch.ones((1, 64, 64, 3), device=cuda)
+    banded_model = model.sorted_for_camera(cam, BASE)
+    bt = gt.train.Trainer(64, 64, BASE, gt.train.TrainConfig(
+        span_bands=True), n_bands=2, device=cuda)
+    bstate = bt.init(banded_model)
+
+    def launches():
+        return (rows_vjp.param_table_forward.launches,
+                rows_vjp.param_table_backward.launches)
+
+    def delta(fn):
+        before = launches()
+        fn()
+        torch.cuda.synchronize()
+        return tuple(a - b for a, b in zip(launches(), before))
+
+    def frame():
+        with torch.no_grad():
+            r.render(model, cam)
+    frame()
+    tr.step(state, batch, target)
+    bt.step(bstate, cam, target[0])
+    profiling.reset()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        counts = [delta(frame), delta(lambda: tr.step(state, batch, target)),
+                  delta(lambda: bt.step(bstate, cam, target[0]))]
+    rec = profiling.recorded()
+    profiling.reset()
+    assert counts == [(1, 0), (1, 1), (1, 1)]
+    assert rec["counts"]["gvrt.param_table.kernel"] == 3
+    assert rec["counts"]["gvrt.param_table.bwd.kernel"] == 2
+    assert rec["spans"]["gvrt.param_table"]["calls"] == 3
+    assert rec["spans"]["gvrt.param_table.bwd"]["calls"] == 2
 
 
 def test_four_nccl_ranks_take_the_batch_step(cuda, tmp_path):

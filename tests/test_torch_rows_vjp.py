@@ -3,12 +3,16 @@
 The table of `frame_params`, with its hand-derived backward, against
 JAX's `rows64_from_model` on the same model and cotangent, and against
 torch autograd of `param_rows(model.activate())`.  Tolerance: 2e-6 of
-each leaf's largest gradient (tests/test_rows_vjp.py's CPU bound).
+each leaf's largest gradient (tests/test_rows_vjp.py's CPU bound).  On the
+CPU `frame_params` takes the plain route whatever `impl` allows, with no
+kernel launched; impl "cuda" raises (the table's kernels are checked on the
+card in tests/test_torch_cuda.py).
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import gvrt_tpu as g3
@@ -93,3 +97,75 @@ def test_rows64_dummy_row_cotangent_is_ignored():
     frame_params(tm, torch_cfg(CFG))[1].backward(g)
     for k in LEAVES:
         assert not getattr(tm, k).grad.any(), k
+
+
+def test_frame_params_cuda_impl_raises_on_the_cpu():
+    """The table's kernels run on the card only: impl "cuda" with CPU
+    leaves raises, and so do the kernel wrappers themselves."""
+    from gvrt_tpu_torch.render import rows_vjp
+    tm = carry(jax_scene(40, seed=7))
+    with pytest.raises(ValueError, match="CUDA"):
+        frame_params(tm, torch_cfg(CFG), impl="cuda")
+    leaves = tuple(p.detach() for p in tm.leaves())
+    with pytest.raises(ValueError, match="CUDA"):
+        rows_vjp.param_table_forward(*leaves)
+    with pytest.raises(ValueError, match="CUDA"):
+        rows_vjp.param_table_backward(torch.zeros((41, 64)), leaves)
+
+
+def test_table_kernels_are_dispatcher_ops():
+    """Each table kernel launches inside an op of its own,
+    `gvrt_port::param_table_forward` and `::param_table_backward`, defined
+    once a process with a CUDA kernel alone, so that a profiler links the
+    kernel to a host op inside the caller's range."""
+    from gvrt_tpu_torch.render import rows_vjp
+    ns = rows_vjp._ops()
+    assert rows_vjp._ops() is ns and len(rows_vjp._library) == 1
+    tm = carry(jax_scene(40, seed=7))
+    leaves = tuple(p.detach() for p in tm.leaves())
+    with pytest.raises(NotImplementedError, match="CPU"):
+        ns.param_table_forward(*leaves)
+    with pytest.raises(NotImplementedError, match="CPU"):
+        ns.param_table_backward(torch.zeros((41, 64)), *leaves)
+
+
+def _bits(x):
+    return x.detach().contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("impl", ["auto", "torch"])
+def test_frame_params_on_the_cpu_takes_the_plain_route(impl):
+    """"auto" and "torch" on the CPU: the table and the activated view are
+    `activate_leaves` + `param_rows`' bits, the gradients the plain
+    backward's, with no kernel launched and no kernel counted."""
+    from gvrt_tpu_torch.models.gaussians import activate_leaves
+    from gvrt_tpu_torch.render import rows_vjp
+    from gvrt_tpu_torch.utils import profiling
+    tm = carry(jax_scene(200, seed=9))
+    cfg = torch_cfg(CFG)
+    g = torch.from_numpy(_cotangent(200, seed=10))
+    before = (rows_vjp.param_table_forward.launches,
+              rows_vjp.param_table_backward.launches)
+    profiling.reset()
+    with torch.profiler.profile():
+        act, rows = frame_params(tm, cfg, impl=impl)
+        rows.backward(g)
+    rec = profiling.recorded()
+    profiling.reset()
+    assert (rows_vjp.param_table_forward.launches,
+            rows_vjp.param_table_backward.launches) == before
+    assert "gvrt.param_table.kernel" not in rec["counts"]
+    assert "gvrt.param_table.bwd.kernel" not in rec["counts"]
+    assert rec["spans"]["gvrt.param_table"]["calls"] == 2
+    assert rec["spans"]["gvrt.param_table.bwd"]["calls"] == 1
+    leaves = tuple(p.detach() for p in tm.leaves())
+    with torch.no_grad():
+        act_p = activate_leaves(*leaves)
+        rows_p = param_rows(act_p, cfg)
+    assert torch.equal(_bits(rows), _bits(rows_p))
+    for field in act_p._fields:
+        assert torch.equal(_bits(getattr(act, field)),
+                           _bits(getattr(act_p, field))), field
+    want = rows_vjp._plain_backward(g, *leaves[:4])
+    for k, w in zip(LEAVES, want):
+        assert torch.equal(_bits(getattr(tm, k).grad), _bits(w)), k

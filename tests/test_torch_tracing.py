@@ -538,6 +538,43 @@ def test_run_fills_come_from_the_scan_kernel(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("path", ("unbanded", "banded"))
+def test_table_kernels_run_inside_their_ranges(cuda, path):
+    """In the profiler's events each parameter-table kernel links to a host
+    op that opens inside its `gvrt.param_table` or `gvrt.param_table.bwd`
+    range, so the layer's device time as `portbench/program_record.py`
+    reads it is both kernels' time and nothing else."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    from portbench import program_record
+    step = (_unbanded if path == "unbanded" else _banded)(cuda)
+    step()   # builds the kernels and, banded, binds
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        # the first device work of a window can go unrecorded: let it be
+        # this, not a table kernel
+        torch.ones(1, device=cuda).add_(1.0)
+        torch.cuda.synchronize()
+        step()
+        step()
+        torch.cuda.synchronize()
+    kernels = ("param_table_forward_kernel", "param_table_backward_kernel")
+    us = {k: [e.duration_ns() / 1e3
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() != DeviceType.CPU and k in e.name()]
+          for k in kernels}
+    assert all(us.values()), {k: len(v) for k, v in us.items()}
+    got = program_record.launched_ms_per_unit(
+        SimpleNamespace(prof=prof), "gvrt.step",
+        ["gvrt.param_table", "gvrt.param_table.bwd"])
+    want = sum(sum(v) for v in us.values()) / 1e3 / 2
+    assert got == pytest.approx(want, rel=1e-9)
+
+
+@pytest.mark.cuda
 def test_host_syncs_match_sync_debug_mode(cuda):
     r, model, cam = _frame(cuda)
     unbanded, banded = _unbanded(cuda), _banded(cuda)
