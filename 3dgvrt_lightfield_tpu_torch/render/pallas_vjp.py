@@ -31,7 +31,7 @@ import torch
 
 from .. import _build
 from ..config import RenderConfig
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .pallas_forward import (_check_device, _check_kernel_inputs,
                              _composite_plain, tile_batch, tile_chunk_runs,
                              tile_forward_residual)
@@ -92,8 +92,9 @@ def tile_backward(chunks: torch.Tensor, rays: torch.Tensor,
     bar_rays (T, 24, R) with cfg.ray_gradients, else None).
 
     On CUDA tensors this launches `csrc/tile_backward.cu` (K2) on the
-    current stream and adds one to `tile_backward.launches`; on CPU tensors
-    it runs the plain version."""
+    current stream and adds one to `tile_backward.launches` (and, for a
+    ray-gradient instance, to the counter `gvrt.composite.bwd.rays`); on
+    CPU tensors it runs the plain version."""
     if chunks.device.type == "cpu":
         return _backward_plain(chunks, rays, tile_counts, t_in, bar_acc, cfg)
     _check_device("tile_backward", chunks)
@@ -112,14 +113,14 @@ def tile_backward(chunks: torch.Tensor, rays: torch.Tensor,
     if smem > _MAX_SMEM:
         raise ValueError(f"the backward kernel needs {smem} B of shared "
                          f"memory at R={r}, G={g} (limit {_MAX_SMEM})")
-    start, count = tile_chunk_runs(tile_counts, num_chunks, g)
+    start, runs = tile_chunk_runs(tile_counts, num_chunks, g)
     bar_chunks = torch.empty_like(chunks)
     bar_rays = torch.empty_like(rays) if cfg.ray_gradients else None
     with torch.cuda.device(chunks.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.gvrt_tile_backward(
             chunks.data_ptr(), rays.data_ptr(), start.data_ptr(),
-            count.data_ptr(), t_in.data_ptr(), bar_acc.data_ptr(),
+            runs.data_ptr(), t_in.data_ptr(), bar_acc.data_ptr(),
             bar_chunks.data_ptr(),
             bar_rays.data_ptr() if cfg.ray_gradients else None, num_tiles,
             num_chunks, r, g, cfg.kernel_degree, cfg.max_alpha,
@@ -129,6 +130,8 @@ def tile_backward(chunks: torch.Tensor, rays: torch.Tensor,
         raise RuntimeError(f"tile_backward kernel launch failed: CUDA error "
                            f"{err}")
     tile_backward.launches += 1
+    if cfg.ray_gradients:
+        count("gvrt.composite.bwd.rays")
     return bar_chunks, bar_rays
 
 

@@ -5,6 +5,13 @@ per-pixel rays are built in the graph from (translation, axis-angle
 rotation) deltas against a base camera, `cfg.ray_gradients=True` makes the
 backward kernel (K2, `csrc/tile_backward.cu`) emit the rays' cotangents,
 and Adam descends to the pose that explains the target image.
+`PoseRefiner` is one camera's refinement a step at a time (its bind, then
+one Adam step per `step()`); `optimize_camera_poses` runs one per camera.
+
+Spans and counters (`utils/profiling.py`): `gvrt.step` per pose step, with
+`gvrt.pose.rays` (the posed rays' forward), `gvrt.backward` (inside it,
+on autograd's thread, `gvrt.pose.rays.bwd`: the rays' backward) and
+`gvrt.optimizer`; `gvrt.bind` and the counter `gvrt.pose.binds` per bind.
 
 CLI: ``python -m 3dgvrt_lightfield_tpu_torch train --optimize-poses N
 [--perturb-poses SIGMA]`` refines every dataset camera against its target
@@ -25,7 +32,7 @@ from ..io.cameras import Camera
 from ..render import binning
 from ..render.pallas_forward import forward_dispatch
 from ..render.tiled import _camera_mats
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 
 
 def _matmul3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -99,6 +106,33 @@ def tile_rays_pose(camera: Camera, cfg: RenderConfig, delta_t, delta_r,
                        cfg, delta_t, delta_r, aabb)
 
 
+class _PosedRays(torch.autograd.Function):
+    """The posed rays with their backward in a range of its own.
+
+    forward builds `_posed_rays`' graph from detached copies of the deltas
+    and hands on the rays without it; backward runs that graph's backward
+    under `gvrt.pose.rays.bwd` on autograd's thread, where its device work
+    launches, and returns the deltas' cotangents.  The same operations on
+    the same cotangent as one backward through the whole graph: bit for
+    bit the same gradients."""
+
+    @staticmethod
+    def forward(ctx, ndc, delta_t, delta_r, camera, cfg):
+        ctx.deltas = (delta_t.detach().requires_grad_(),
+                      delta_r.detach().requires_grad_())
+        with torch.enable_grad():
+            ctx.rays = _posed_rays(ndc, camera, cfg, *ctx.deltas)
+        return ctx.rays.detach()
+
+    @staticmethod
+    def backward(ctx, bar_rays):
+        with span("gvrt.pose.rays.bwd"):
+            bar_t, bar_r = torch.autograd.grad(ctx.rays, ctx.deltas,
+                                               bar_rays)
+        ctx.rays = ctx.deltas = None
+        return None, bar_t, bar_r, None, None
+
+
 def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
@@ -131,7 +165,8 @@ def bind_pose(model, camera: Camera, target,
     """Plan, bin and gather the scene once at the camera's base pose (pose
     deltas are small and the cull is conservative), on the model's device.
     `cfg.ray_gradients` is set: without it the ray cotangents are silent
-    zeros and the pose would stay put."""
+    zeros and the pose would stay put.  Counts one `gvrt.pose.binds`."""
+    count("gvrt.pose.binds")
     dev = model.device
     cfg = cfg.replace(ray_gradients=True)
     w2c, proj = _camera_mats(camera)
@@ -156,11 +191,72 @@ def pose_loss(b: PoseBinding, delta_t, delta_r,
     """Mean squared rgb error of the bound camera moved by (delta_t,
     rodrigues(delta_r)) against its target.  With grad it runs K1 with its
     residual, then K2 with the ray cotangents (impl "cuda", the default on
-    the card), or their plain versions ("torch")."""
-    rays = _posed_rays(b.ndc, b.camera, b.cfg, delta_t, delta_r)
+    the card), or their plain versions ("torch").  The rays are built
+    under `gvrt.pose.rays`; differentiated, their backward runs under
+    `gvrt.pose.rays.bwd` (`_PosedRays`)."""
+    with span("gvrt.pose.rays"):
+        deltas = (delta_t, delta_r)
+        if torch.is_grad_enabled() and all(map(torch.is_tensor, deltas)) \
+                and any(x.requires_grad for x in deltas):
+            rays = _PosedRays.apply(b.ndc, delta_t, delta_r, b.camera, b.cfg)
+        else:
+            rays = _posed_rays(b.ndc, b.camera, b.cfg, delta_t, delta_r)
     acc = forward_dispatch(b.binned, rays, b.cfg,
                            resolve_impl(impl, b.target.device))
     return ((acc[:, 0:3, :] - b.target) ** 2).mean()
+
+
+class PoseRefiner:
+    """One camera's pose refinement, a step at a time, on the model's
+    device: `bind_pose` at construction, then Adam (optax's `adam(lr)`
+    defaults, eps 1e-8) on the 6-DOF delta (`t`, `r`) through `pose_loss`.
+
+    `initial_loss()` reads the loss at the base pose to the host; `step()`
+    is one Adam step under the root span `gvrt.step` and returns its loss,
+    before the update, as a 0-d device tensor (no host read); after it
+    `grads()` are the step's (d loss / d t, d loss / d r).  `result()`
+    bakes the delta into a Camera beside the report {loss0, loss1,
+    dt_norm, dr_norm}, loss1 the last step's loss."""
+
+    def __init__(self, model, camera: Camera, target,
+                 cfg: RenderConfig = DEFAULT_CONFIG, lr: float = 3e-3,
+                 impl: str = "auto"):
+        dev = model.device
+        self.camera = camera
+        self.impl = resolve_impl(impl, dev)
+        self.bound = bind_pose(model, camera, target, cfg)
+        self.t = torch.zeros(3, device=dev, requires_grad=True)
+        self.r = torch.zeros(3, device=dev, requires_grad=True)
+        self.opt = torch.optim.Adam([self.t, self.r], lr=lr, eps=1e-8)
+        self.loss0 = self.last = None
+
+    def initial_loss(self) -> float:
+        with torch.no_grad():
+            self.loss0 = float(pose_loss(self.bound, self.t, self.r,
+                                         self.impl))
+        return self.loss0
+
+    def step(self) -> torch.Tensor:
+        with span("gvrt.step"):
+            self.opt.zero_grad(set_to_none=True)
+            loss = pose_loss(self.bound, self.t, self.r, self.impl)
+            with span("gvrt.backward"):
+                loss.backward()
+            with span("gvrt.optimizer"):
+                self.opt.step()
+        self.last = loss.detach()
+        return self.last
+
+    def grads(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.t.grad, self.r.grad
+
+    def result(self) -> Tuple[Camera, dict]:
+        dt, dr = _host(self.t), _host(self.r)
+        loss1 = self.loss0 if self.last is None else float(self.last)
+        return apply_pose_delta(self.camera, dt, dr), {
+            "loss0": self.loss0, "loss1": loss1,
+            "dt_norm": float(np.linalg.norm(dt)),
+            "dr_norm": float(np.linalg.norm(dr))}
 
 
 def optimize_camera_poses(model, cameras: Sequence[Camera],
@@ -169,42 +265,22 @@ def optimize_camera_poses(model, cameras: Sequence[Camera],
                           impl: str = "auto", verbose: bool = True
                           ) -> Tuple[List[Camera], List[dict]]:
     """Refine each camera's pose against its target image, on the model's
-    device.
-
-    Per camera: `bind_pose` once, then Adam (optax's `adam(lr)` defaults)
-    on (delta_t, delta_r) through `pose_loss`.  Returns (corrected cameras,
-    per-camera reports {loss0, loss1, dt_norm, dr_norm}); loss1 is the loss
-    of the last step, before its update."""
-    dev = model.device
-    impl = resolve_impl(impl, dev)
+    device: a `PoseRefiner` per camera, `steps` steps.  Returns (corrected
+    cameras, per-camera reports {loss0, loss1, dt_norm, dr_norm}); loss1
+    is the loss of the last step, before its update."""
     out_cams, reports = [], []
     for cam, target in zip(cameras, targets):
-        bound = bind_pose(model, cam, target, cfg)
-        t = torch.zeros(3, device=dev, requires_grad=True)
-        r = torch.zeros(3, device=dev, requires_grad=True)
-        opt = torch.optim.Adam([t, r], lr=lr, eps=1e-8)
-        with torch.no_grad():
-            loss0 = float(pose_loss(bound, t, r, impl))
-        val = loss0
+        refiner = PoseRefiner(model, cam, target, cfg, lr, impl)
+        refiner.initial_loss()
         for _ in range(steps):
-            with span("gvrt.step"):
-                opt.zero_grad(set_to_none=True)
-                loss = pose_loss(bound, t, r, impl)
-                with span("gvrt.backward"):
-                    loss.backward()
-                with span("gvrt.optimizer"):
-                    opt.step()
-                val = float(loss.detach())
-        dt, dr = _host(t), _host(r)
-        out_cams.append(apply_pose_delta(cam, dt, dr))
-        rep = {"loss0": loss0, "loss1": val,
-               "dt_norm": float(np.linalg.norm(dt)),
-               "dr_norm": float(np.linalg.norm(dr))}
+            refiner.step()
+        fixed, rep = refiner.result()
+        out_cams.append(fixed)
         reports.append(rep)
         if verbose:
             print(f"pose-opt {cam.name or len(out_cams) - 1}: "
-                  f"loss {loss0:.3e} -> {val:.3e}  |dt| {rep['dt_norm']:.4f} "
-                  f"|dr| {rep['dr_norm']:.4f}")
+                  f"loss {rep['loss0']:.3e} -> {rep['loss1']:.3e}  "
+                  f"|dt| {rep['dt_norm']:.4f} |dr| {rep['dr_norm']:.4f}")
     return out_cams, reports
 
 

@@ -70,7 +70,9 @@ kernel tolerances):
     G = 256), after a NaN-poisoned
     allocator, on a frame with empty corner tiles: relative L2 <= 1e-4,
     finite, nonzero; and K2's ray cotangents of that loss row by row as
-    above.
+    above.  A `PoseRefiner` step's posed rays launch their device work
+    inside `gvrt.pose.rays` and, on autograd's thread, `gvrt.pose.rays.bwd`
+    (both read above 0 by `portbench/program_record.py`).
   * The max-scan kernel (`render/scan.py::max_scan`, binning's run fills)
     against cummax's values on the card: bit for bit, twice, after an
     allocator filled with a sentinel, at lengths 1, 2, a tile -1, +0 and
@@ -823,6 +825,46 @@ def test_pose_ray_cotangent_rows_match_plain(cuda, tile):
     assert pv.tile_backward.launches == before + 3
     assert float(want[1].abs().max()) > 0
     assert _assert_ray_rows_match(got, again, want, without) == 22
+
+
+def test_posed_rays_run_inside_their_ranges(cuda):
+    """In the profiler's events the posed rays' device work links to host
+    ops inside `gvrt.pose.rays` (the forward, on the step's thread) and
+    `gvrt.pose.rays.bwd` (the backward, on autograd's thread), so
+    `portbench/program_record.py` reads both halves and
+    `pose_rays_ms.pose` reads above 0."""
+    from types import SimpleNamespace
+
+    from gvrt_tpu_torch.utils import profiling
+    from portbench import program_record
+    g = torch.Generator(device=cuda).manual_seed(31)
+    model = gt.random_gaussians(g, 2000, extent=0.8, device=cuda)
+    with torch.no_grad():
+        model.means[:, 2] -= 3.0
+    cam = gt.Camera.from_fovy(96, 96, 60.0, np.eye(4))
+    with torch.no_grad():
+        image = gt.render.render_image_tiled(model, cam, BASE,
+                                             device=cuda)["rgb"]
+    bad = gt.train.perturb_cameras([cam], 0.03, seed=1)[0]
+    refiner = gt.train.PoseRefiner(model, bad, image, BASE)
+    refiner.step()   # builds the kernels
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        profiling.reset()
+        torch.ones(1, device=cuda).add_(1.0)
+        torch.cuda.synchronize()
+        refiner.step()
+        refiner.step()
+        torch.cuda.synchronize()
+    trace = SimpleNamespace(prof=prof)
+    fwd, bwd, both = (program_record.launched_ms_per_unit(
+        trace, "gvrt.step", names) for names in (
+            ["gvrt.pose.rays"], ["gvrt.pose.rays.bwd"],
+            ["gvrt.pose.rays", "gvrt.pose.rays.bwd"]))
+    assert fwd > 0 and bwd > 0
+    assert both == pytest.approx(fwd + bwd, rel=1e-9)
+    assert profiling.recorded()["spans"]["gvrt.pose.rays.bwd"]["calls"] == 2
 
 
 @pytest.mark.parametrize("tile", [8, 16], ids=["R64", "R256"])

@@ -457,6 +457,58 @@ def test_allreduce_spans_and_counters(tmp_path):
         assert rec["counts"]["gvrt.ranks"] == 2 * 2
 
 
+def _pose_refiner(device, camera=None):
+    """A `PoseRefiner` of a perturbed camera against the true camera's
+    render (its bind recorded where the profiler records)."""
+    model = _scene(device, seed=2)
+    cam = _camera()
+    with torch.no_grad():
+        target = gt.render.render_image_tiled(model, cam, CFG,
+                                              device=device)["rgb"]
+    bad = camera or gt.train.perturb_cameras([cam], 0.03, seed=1)[0]
+    return gt.train.PoseRefiner(model, bad, target, CFG)
+
+
+def test_pose_step_spans_and_counters():
+    """A pose step opens `gvrt.pose.rays` (the posed rays) and, inside its
+    backward, `gvrt.pose.rays.bwd` once each; every bind counts one
+    `gvrt.pose.binds`; the CLI's loop, a refiner per camera, records the
+    same per step."""
+    with torch.profiler.profile():
+        refiner = _pose_refiner("cpu")
+        refiner.initial_loss()
+        for _ in range(3):
+            refiner.step()
+    rec, log = profiling.recorded(), _log()
+    assert rec["units"]["gvrt.step"] == 3
+    assert rec["counts"]["gvrt.pose.binds"] == 1
+    assert rec["spans"]["gvrt.bind"]["calls"] == 1
+    for name in ("gvrt.pose.rays.bwd", "gvrt.backward", "gvrt.optimizer"):
+        assert rec["spans"][name]["calls"] == 3, name
+    # the base pose's loss runs the posed rays once more, outside a step
+    assert rec["spans"]["gvrt.pose.rays"]["calls"] == 4
+    assert [p for n, p, _, _ in log if n == "gvrt.pose.rays"] == \
+        [None] + ["gvrt.step"] * 3
+    assert _parents(log, "gvrt.pose.rays.bwd") == {"gvrt.backward"}
+    assert "gvrt.pose.rays" in _parents(log, "gvrt.rays.rows")
+    assert "gvrt.composite.bwd.rays" not in rec["counts"]   # no kernel here
+
+    profiling.reset()
+    model = _scene("cpu", seed=2)
+    cams = [_camera(), _camera(0.02)]
+    with torch.no_grad():
+        targets = [gt.render.render_image_tiled(model, c, CFG,
+                                                device="cpu")["rgb"]
+                   for c in cams]
+    with torch.profiler.profile():
+        gt.train.optimize_camera_poses(model, cams, targets, CFG, steps=2,
+                                       verbose=False)
+    rec = profiling.recorded()
+    assert rec["counts"]["gvrt.pose.binds"] == 2
+    assert rec["units"]["gvrt.step"] == 4
+    assert rec["spans"]["gvrt.pose.rays.bwd"]["calls"] == 4
+
+
 # ---- on the card -------------------------------------------------------------
 
 @pytest.fixture
@@ -592,3 +644,25 @@ def test_host_syncs_match_sync_debug_mode(cuda):
     for name, (counted, warned, where) in got.items():
         assert warned > 0, name
         assert counted == warned, (name, counted, where)
+
+
+@pytest.mark.cuda
+def test_pose_step_counts_its_ray_gradient_launch(cuda):
+    """On the card a pose step launches K2's ray-gradient instance once,
+    counted as `gvrt.composite.bwd.rays`; a training step, whose rays are
+    constants, counts none."""
+    refiner = _pose_refiner(cuda)
+    step = _unbanded(cuda)
+    refiner.step()   # builds the kernels
+    step()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        profiling.reset()
+        for _ in range(3):
+            refiner.step()
+        step()
+        torch.cuda.synchronize()
+    rec = profiling.recorded()
+    assert rec["units"]["gvrt.step"] == 4
+    assert rec["counts"]["gvrt.composite.bwd.rays"] == 3
