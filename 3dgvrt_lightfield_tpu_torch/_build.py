@@ -56,6 +56,11 @@ SIGNATURES = {
         "gvrt_param_table_forward": ([_P] * 11 + [_L, _P], ctypes.c_int),
         "gvrt_param_table_backward": ([_P] * 11 + [_L, _P], ctypes.c_int),
     },
+    "bin_expand": {
+        "gvrt_bin_run_starts": ([_P, _P, _L, _L, _P, _P], ctypes.c_int),
+        "gvrt_bin_pair_keys": ([_P] * 9 + [_L, _I, _I, _I, _I, _I, _F, _F,
+                                          _F, _F, _P], ctypes.c_int),
+    },
     "segment_reduce_compact": {
         "gvrt_segment_reduce_compact": ([_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                          _P], ctypes.c_int),

@@ -16,9 +16,13 @@ Index math is int64 (torch's index type); the topology's arrays leave as
 int32, like the JAX package's.  Per-pair and per-chunk runs (a pair's
 Gaussian, a chunk's tile, a sorted pair's slot offset) are filled by a
 scatter at each run's start and a running max, `scan.max_scan`: on the card
-one launch of `csrc/max_scan.cu`.  Capacities are static per plan: pairs that do
-not fit are dropped and counted in `overflow`, and the renderer re-plans.
-`plan_capacity` measures a scene+camera once on the host to pick them.
+one launch of `csrc/max_scan.cu`.  Steps 2 and the key of 3 are
+`expand_pairs`: on the card two launches of `csrc/bin_expand.cu` around the
+pair fill's scan, which write each slot's 31-bit key as int32; on the CPU
+their plain version, `_expand_pairs_plain`.  Capacities are static per
+plan: pairs that do not fit are dropped and counted in `overflow`, and the
+renderer re-plans.  `plan_capacity` measures a scene+camera once on the
+host to pick them.
 
 The topology also carries the gradient-reduce plan (`segreduce.py`) that
 the gather's backward (`param_grads.chunked_gather`) sums per-pair
@@ -239,17 +243,25 @@ def _scatter_max_fill(capacity: int, offsets, values, valid):
     return max_scan(arr)
 
 
-def _pair_ellipsoid_cull(tile_x, tile_y, csx, csy, csz, v9, p00, p11,
-                         width, height, ts):
+def _cull_scalars(proj, width: int, height: int, ts: int):
+    """(P00, P11, fx, fy) of `_pair_ellipsoid_cull`: the projection's
+    diagonal and a tile's ndc width and height, as Python floats."""
+    proj = np.asarray(proj, np.float32)
+    return (float(proj[0, 0]), float(proj[1, 1]), 2.0 * ts / width,
+            2.0 * ts / height)
+
+
+def _pair_ellipsoid_cull(tile_x, tile_y, csx, csy, csz, v9, p00, p11, fx,
+                         fy):
     """Exact ellipsoid-vs-tile-frustum test per (tile, gaussian) pair.
 
     The tile's frustum is the wedge of four planes through the camera origin
     along the tile's ndc edges; with a diagonal projection and w = -z, the
     plane for ndc_x >= a is n = (P00, 0, a).  The ellipsoid {cs + V u} meets
     the half-space n.x >= 0 iff n.cs >= -|V^T n| (its support function),
-    compared squared.  v9 is V.reshape(9) per pair (rows x/y/z).
+    compared squared.  v9 is V.reshape(9) per pair (rows x/y/z); the
+    scalars are `_cull_scalars`'.
     """
-    fx, fy = 2.0 * ts / width, 2.0 * ts / height
     a0 = fx * tile_x.to(torch.float32) - 1.0
     a1 = a0 + fx
     b0 = fy * tile_y.to(torch.float32) - 1.0
@@ -276,6 +288,121 @@ def _pair_ellipsoid_cull(tile_x, tile_y, csx, csy, csz, v9, p00, p11,
     keep &= touches_ge(ly + b0 * csz, sup2(p11, b0, 1, 2))
     keep &= touches_le(ly + b1 * csz, sup2(p11, b1, 1, 2))
     return keep
+
+
+def _expand_pairs_plain(capacity: int, offsets, counts, total, rect,
+                        depth_q, cs, v, nx: int, num_tiles: int,
+                        row_offset: int, row_stride: int, depth_bits: int,
+                        cull):
+    """`expand_pairs` in torch ops (its arguments, its results)."""
+    n = offsets.shape[0]
+    dev = offsets.device
+    tx0, ty0, tx1 = (a.long() for a in rect)
+    gid = torch.arange(n, dtype=_I64, device=dev)
+    pair_g = _scatter_max_fill(capacity, offsets, gid, counts > 0)
+    p_idx = torch.arange(capacity, dtype=_I64, device=dev)
+    in_range = p_idx < total
+    j = p_idx - offsets[pair_g]
+    e_rw = (tx1 - tx0 + 1)[pair_g]
+    tile_x = tx0[pair_g] + j % e_rw
+    tile_y = ty0[pair_g] + torch.div(j, e_rw, rounding_mode="floor")
+    tile_y_global = tile_y * row_stride + row_offset
+    v9 = torch.stack(v, dim=1)[pair_g]
+    fine = _pair_ellipsoid_cull(tile_x, tile_y_global, cs[0][pair_g],
+                                cs[1][pair_g], cs[2][pair_g], v9, *cull)
+    tile_id = torch.where(in_range & fine, tile_y * nx + tile_x, num_tiles)
+    key = (tile_id << depth_bits) | torch.where(in_range, depth_q[pair_g], 0)
+    return pair_g, key.to(_I32)
+
+
+def _check_expand_inputs(offsets, counts, total, rect, depth_q, cs, v):
+    n = offsets.shape[0] if offsets.dim() == 1 else -1
+    cols = ([("offsets", offsets, _I64), ("counts", counts, _I64),
+             ("depth_q", depth_q, _I64)]
+            + [(f"rect[{i}]", t, _I32) for i, t in enumerate(rect)]
+            + [(f"cs[{i}]", t, torch.float32) for i, t in enumerate(cs)]
+            + [(f"v[{i}]", t, torch.float32) for i, t in enumerate(v)])
+    if len(rect) != 3 or len(cs) != 3 or len(v) != 9:
+        raise ValueError(f"expand_pairs takes 3 rect, 3 cs and 9 v columns, "
+                         f"not {len(rect)}, {len(cs)} and {len(v)}")
+    for name, t, dtype in cols:
+        if (t.dtype != dtype or t.dim() != 1 or t.shape[0] != n
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"expand_pairs: {name} must be a contiguous (N,) {dtype} "
+                f"column beside offsets, not {t.dtype} of shape "
+                f"{tuple(t.shape)} and strides {t.stride()}")
+    if total.dtype != _I64 or total.numel() != 1:
+        raise ValueError(f"expand_pairs: total must be one int64, not "
+                         f"{total.dtype} of shape {tuple(total.shape)}")
+    dev = offsets.device
+    for name, t in [("total", total)] + [(c[0], c[1]) for c in cols]:
+        if t.device != dev:
+            raise ValueError(f"expand_pairs: {name} is on {t.device}, "
+                             f"offsets on {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"expand_pairs runs on CUDA or the CPU, not {dev}")
+
+
+def expand_pairs(capacity: int, offsets, counts, total, rect, depth_q, cs, v,
+                 nx: int, num_tiles: int, row_offset: int, row_stride: int,
+                 depth_bits: int, cull):
+    """Every pair slot's Gaussian and packed sort key.
+
+    Gaussian g owns the slots [offsets[g], offsets[g] + counts[g]) (int64
+    columns), `total` (a 0-d int64 tensor) slots in all before the
+    `capacity` cut.  `rect` is the band-local (tx0, ty0, tx1) int32 tile
+    rects, `depth_q` the int64 quantized depths, `cs` and `v` the frame
+    table's 3 + 9 f32 columns, `cull` `_cull_scalars`' floats; the band
+    owns global tile rows row_offset + row_stride * i.  Returns pair_g,
+    (capacity,) int64, each slot's Gaussian (the last run's past `total`),
+    and key, (capacity,) int32: (tile_id << depth_bits) | depth_q[g], where
+    tile_id is the slot's local tile if the ellipsoid touches it, else
+    num_tiles; past `total` num_tiles << depth_bits.
+
+    On CUDA tensors this launches `csrc/bin_expand.cu` twice around
+    `max_scan`, on the current stream (no synchronisation), adds one to
+    `expand_pairs.launches` and counts `gvrt.binning.expand.kernel`; the
+    keys and pair_g equal the plain version's bit for bit.  On CPU tensors
+    it runs the plain version, `_expand_pairs_plain`."""
+    _check_expand_inputs(offsets, counts, total, rect, depth_q, cs, v)
+    if offsets.device.type == "cpu":
+        return _expand_pairs_plain(capacity, offsets, counts, total, rect,
+                                   depth_q, cs, v, nx, num_tiles,
+                                   row_offset, row_stride, depth_bits, cull)
+    dev = offsets.device
+    n = offsets.shape[0]
+    lib = _build.load("bin_expand")
+    starts = torch.zeros(capacity, dtype=_I64, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.gvrt_bin_run_starts(
+            offsets.data_ptr(), counts.data_ptr(), n, capacity,
+            starts.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bin_expand run-start kernel launch failed: CUDA "
+                           f"error {err}")
+    pair_g = max_scan(starts)
+    del starts
+    key = torch.empty(capacity, dtype=_I32, device=dev)
+    columns = (ctypes.c_void_p * 12)(*(t.data_ptr() for t in (*cs, *v)))
+    with torch.cuda.device(dev):
+        err = lib.gvrt_bin_pair_keys(
+            pair_g.data_ptr(), total.data_ptr(), offsets.data_ptr(),
+            *(t.data_ptr() for t in rect), depth_q.data_ptr(), columns,
+            key.data_ptr(), capacity, nx, num_tiles, row_offset, row_stride,
+            depth_bits, *cull, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"bin_expand pair-key kernel launch failed: CUDA "
+                           f"error {err}")
+    _EXPAND_PAIRS.launches += 1
+    count("gvrt.binning.expand.kernel")
+    return pair_g, key
+
+
+expand_pairs.launches = 0
+#: the wrapper itself: a caller that patches a spy over the module's name
+#: still counts the launches here
+_EXPAND_PAIRS = expand_pairs
 
 
 #: binning's stages inside `bin_topology_from_table`
@@ -326,12 +453,11 @@ def bin_topology_from_table(tab: FrameCullTable, proj, width: int,
     nx = width // cfg.tile_size
     (tx0, ty0, tx1, ty1), valid, ny = _band_localize(
         tab, height // cfg.tile_size, (row_offset, row_stride, row_count))
-    tx0, ty0, tx1, ty1 = (a.long() for a in (tx0, ty0, tx1, ty1))
     depth = tab.depth
     num_tiles = nx * ny
 
-    rect_w = tx1 - tx0 + 1
-    counts = torch.where(valid, rect_w * (ty1 - ty0 + 1), 0)
+    counts = torch.where(valid, ((tx1 - tx0 + 1) * (ty1 - ty0 + 1)).long(),
+                         0)
     offsets = torch.cumsum(counts, 0) - counts
     total = offsets[-1] + counts[-1]
     overflow = torch.clamp_min(total - capacity, 0)
@@ -355,38 +481,25 @@ def bin_topology_from_table(tab: FrameCullTable, proj, width: int,
         (torch.clamp_min(depth - dmin, 0.0) * dscale).to(_I64),
         0, 2 ** depth_bits - 1)
 
-    # pair p -> gaussian id via scatter of range starts + running max
+    # pair p -> gaussian id (range starts + running max), its tile, the
+    # exact cull and one packed int32 key: tile in the high bits, quantized
+    # depth in the low bits
     with _EXPAND:
-        gid = torch.arange(n, dtype=_I64, device=dev)
-        pair_g = _scatter_max_fill(capacity, offsets, gid,
-                                   valid & (counts > 0))
-        p_idx = torch.arange(capacity, dtype=_I64, device=dev)
-        in_range = p_idx < total
-        j = p_idx - offsets[pair_g]
-        e_rw = rect_w[pair_g]
-        tile_x = tx0[pair_g] + j % e_rw
-        tile_y = ty0[pair_g] + torch.div(j, e_rw, rounding_mode="floor")
-        tile_y_global = tile_y * row_stride + row_offset
-        v9 = torch.stack(tab.v, dim=1)[pair_g]
-        fine = _pair_ellipsoid_cull(tile_x, tile_y_global, tab.cs[0][pair_g],
-                                    tab.cs[1][pair_g], tab.cs[2][pair_g], v9,
-                                    float(proj[0, 0]), float(proj[1, 1]),
-                                    width, height, cfg.tile_size)
-        tile_id = torch.where(in_range & fine, tile_y * nx + tile_x,
-                              num_tiles)
+        pair_g, key = expand_pairs(
+            capacity, offsets, counts, total, (tx0, ty0, tx1), depth_q,
+            tab.cs, tab.v, nx, num_tiles, row_offset, row_stride, depth_bits,
+            _cull_scalars(proj, width, height, cfg.tile_size))
 
-    # one packed key: tile in the high bits, quantized depth in the low
-    # bits; the stable sort keeps pre-sort pair order among equal keys
+    # the stable sort keeps pre-sort pair order among equal keys
     with _SORT:
-        key = (tile_id << depth_bits) | torch.where(in_range,
-                                                    depth_q[pair_g], 0)
         key_sorted, p_sorted = torch.sort(key, stable=True)
         g_sorted = pair_g[p_sorted]
         tile_sorted = key_sorted >> depth_bits
 
     with _LAYOUT:
         tiles = torch.arange(num_tiles + 1, dtype=_I64, device=dev)
-        tile_edges = torch.searchsorted(tile_sorted, tiles, right=False)
+        tile_edges = torch.searchsorted(tile_sorted, tiles.to(_I32),
+                                        right=False)
         tile_counts = torch.diff(tile_edges,
                                  append=tile_edges.new_tensor([capacity]))
         starts = tile_edges
@@ -426,6 +539,7 @@ def bin_topology_from_table(tab: FrameCullTable, proj, width: int,
                              "amax")
         delta = max_scan(fill)
         keep = tile_sorted < num_tiles
+        p_idx = torch.arange(capacity, dtype=_I64, device=dev)
         dest_drop = torch.where(keep, p_idx + delta, capacity_padded)
         placed = dest_drop < capacity_padded
         pair_gauss = torch.full((capacity_padded,), n, dtype=_I64,
@@ -582,11 +696,10 @@ def _host_expand_cull(tab: FrameCullTable, proj, width, height,
     j = torch.arange(total, device=dev) - offs[pg]
     tile_x = tx0[pg] + j % rect_w[pg]
     tile_y = ty0[pg] + torch.div(j, rect_w[pg], rounding_mode="floor")
-    proj = np.asarray(proj, np.float32)
     keep = _pair_ellipsoid_cull(
         tile_x, tile_y * stride + offset, tab.cs[0][pg], tab.cs[1][pg],
-        tab.cs[2][pg], torch.stack(tab.v, dim=1)[pg], float(proj[0, 0]),
-        float(proj[1, 1]), width, height, cfg.tile_size)
+        tab.cs[2][pg], torch.stack(tab.v, dim=1)[pg],
+        *_cull_scalars(proj, width, height, ts))
     per_tile = torch.bincount((tile_y * nx + tile_x)[keep], minlength=nx * ny)
     live_counts = torch.bincount(pg[keep], minlength=n)
     return (total, per_tile.cpu().numpy(), nx, ny,

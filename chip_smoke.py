@@ -7,10 +7,10 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
-  1. set-up: the card's name and power limit, TF32 off, the seven kernel
+  1. set-up: the card's name and power limit, TF32 off, the eight kernel
      libraries (tile_forward, tile_backward, camera_rays, max_scan,
-     param_table, segment_reduce, segment_reduce_compact) built from csrc/
-     with nvcc, all at once;
+     param_table, bin_expand, segment_reduce, segment_reduce_compact) built
+     from csrc/ with nvcc, all at once;
  1b. the camera-ray kernel (csrc/camera_rays.cu) at
      1920x1088, tile 16, against the plain route on the card (NumPy rays,
      the upload, tile_ray_rows) after a NaN-poisoned allocator: origins
@@ -32,6 +32,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the plain route and its byte bound (556 and 536 bytes a Gaussian); a
      serving frame (phase 3) must launch the forward once and the
      training window (phase 5) each kernel once a step;
+ 1e. binning's pair expansion (csrc/bin_expand.cu: run starts, the
+     max-scan, each slot's tile, exact cull and int32 key) at the garden
+     serving frame's pair capacity, after a NaN-poisoned allocator: the
+     slots' Gaussians and keys bit for bit the plain version's
+     (`_expand_pairs_plain`) on the same card tensors; the expansion and
+     its pair-key kernel timed beside their byte bounds and the plain
+     version; a serving frame (phase 3) and the unbanded bind (phase 5)
+     must launch the pair kernel once;
   2. the tile kernels against their plain PyTorch versions on the same
      binned inputs: small scenes at tile_size=8/chunk_size=128, at the
      defaults with log-space transmittance, with another kernel degree, a
@@ -225,6 +233,15 @@ RAY_BYTES = 24 * 4
 #: cotangent (64) and the four geometric leaves (11) and writes the six
 #: gradients (59)
 TABLE_FWD_BYTES, TABLE_BWD_BYTES = 4 * (59 + 64 + 16), 4 * (64 + 11 + 59)
+
+#: bytes binning's pair expansion moves at the least: the pair-key kernel
+#: reads pair_g and writes the key a slot (12) and reads offsets, the rect,
+#: depth_q and 12 cull columns a live Gaussian (76); the whole route adds
+#: the zero fill (8) and the max-scan (16) a slot, offsets and counts read a
+#: Gaussian (16) and the run start stored a live one (8)
+KEYS_BYTES_SLOT, KEYS_BYTES_LIVE = 12, 76
+EXPAND_BYTES_SLOT = KEYS_BYTES_SLOT + 8 + 16
+EXPAND_BYTES_GAUSS, EXPAND_BYTES_LIVE = 16, KEYS_BYTES_LIVE + 8
 
 FULL_W, FULL_H, FULL_N = 1920, 1088, 300_000
 #: the light field's tile (models/lightfield.py): R = 400 rays per tile
@@ -1068,6 +1085,83 @@ def table_phase(gt, torch, dev, name, power):
         res[label] = r
         del leaves, g
     print(json.dumps({"phase": "param_table", "card": name,
+                      "power_limit": power, **res,
+                      "seconds": time.time() - t_phase}), flush=True)
+    return res
+
+
+def expand_phase(gt, torch, dev, name, power):
+    """Phase 1e: binning's pair expansion at the garden serving frame's pair
+    capacity, the kernels against the plain version on the same card
+    tensors, both timed, and the pair-key kernel timed alone; returns the
+    kernels line's numbers."""
+    import ctypes
+    from gvrt_tpu_torch import _build
+    from gvrt_tpu_torch.render import binning
+    from gvrt_tpu_torch.render.tiled import TiledRenderer, _camera_mats
+    t_phase = time.time()
+    base = gt.DEFAULT_CONFIG
+    model, cam = garden_scene(gt, torch, dev)
+    cap, cap_pad = TiledRenderer(FULL_W, FULL_H, device=dev).plan(model,
+                                                                   [cam])
+    with torch.no_grad():
+        w2c, proj = _camera_mats(cam)
+        tab = binning.frame_cull_table(model.activate(), w2c, proj, FULL_W,
+                                       FULL_H, base)
+    del model
+    kernel, seen = binning.expand_pairs, []
+    binning.expand_pairs = lambda *a: seen.append(a) or kernel(*a)
+    try:
+        binning.bin_topology_from_table(tab, proj, FULL_W, FULL_H, base, cap,
+                                        cap_pad, with_reduce_plan=False)
+    finally:
+        binning.expand_pairs = kernel
+    args = seen[0]
+    want = binning._expand_pairs_plain(*args)
+    poison_allocator(torch, 24 * cap, dev)
+    before = kernel.launches
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    if kernel.launches != before + 1:
+        fail("expand_pairs did not launch its kernels")
+    for label, k, p in (("pair_g", got[0], want[0]), ("key", got[1], want[1])):
+        if not torch.equal(k, p):
+            fail(f"bin_expand at capacity {cap}: {int((k != p).sum())} "
+                 f"{label} entries differ from the plain version")
+    del want
+    # the pair-key kernel alone, on the filled runs of the call above
+    (_, offsets, counts, total, rect, depth_q, cs, v, nx, num_tiles,
+     row_offset, row_stride, depth_bits, cull) = args
+    pair_g, key = got[0], torch.empty_like(got[1])
+    lib = _build.load("bin_expand")
+    cols = (ctypes.c_void_p * 12)(*(t.data_ptr() for t in (*cs, *v)))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def pair_keys():
+        err = lib.gvrt_bin_pair_keys(
+            pair_g.data_ptr(), total.data_ptr(), offsets.data_ptr(),
+            *(t.data_ptr() for t in rect), depth_q.data_ptr(), cols,
+            key.data_ptr(), cap, nx, num_tiles, row_offset, row_stride,
+            depth_bits, *cull, stream)
+        if err != 0:
+            fail(f"bin_expand pair-key launch failed: CUDA error {err}")
+    pair_keys()
+    torch.cuda.synchronize()
+    if not torch.equal(key, got[1]):
+        fail("the pair-key kernel alone differs from expand_pairs' keys")
+    n, live = offsets.shape[0], int((counts > 0).sum())
+    res = {"capacity": cap, "gaussians": n, "live": live,
+           "total": int(total), "ms": cuda_ms(lambda: kernel(*args), n=20),
+           "plain_ms": cuda_ms(lambda: binning._expand_pairs_plain(*args),
+                               n=5),
+           "bound_ms": roofline(EXPAND_BYTES_SLOT * cap
+                                + EXPAND_BYTES_GAUSS * n
+                                + EXPAND_BYTES_LIVE * live, 0)[0],
+           "keys_ms": cuda_ms(pair_keys, n=20),
+           "keys_bound_ms": roofline(KEYS_BYTES_SLOT * cap
+                                     + KEYS_BYTES_LIVE * live, 0)[0],
+           "bound_by": "bytes"}
+    print(json.dumps({"phase": "bin_expand", "card": name,
                       "power_limit": power, **res,
                       "seconds": time.time() - t_phase}), flush=True)
     return res
@@ -2111,6 +2205,9 @@ def main():
     # ---- 1d. the parameter-table kernels ---------------------------------
     table_res = table_phase(gt, torch, dev, name, power)
 
+    # ---- 1e. binning's pair expansion --------------------------------------
+    expand_res = expand_phase(gt, torch, dev, name, power)
+
     # ---- 2. kernels against plain versions ------------------------------
     def add_training_errs(errs):
         tin_errs.append(errs[0])
@@ -2220,6 +2317,7 @@ def main():
     reset_launches()
     rays_before = binning.camera_rays_kernel.launches
     scan_before = gt.render.scan.max_scan.launches
+    expand_before = binning.expand_pairs.launches
     table_before = table_launches()
     with torch.no_grad():  # serving: K1 without the training residual
         out = renderer.render(model, cam)
@@ -2227,6 +2325,10 @@ def main():
     serve_launches = launches()
     serve_ray_launches = binning.camera_rays_kernel.launches - rays_before
     serve_scan_launches = gt.render.scan.max_scan.launches - scan_before
+    serve_expand_launches = binning.expand_pairs.launches - expand_before
+    if serve_expand_launches != 1:
+        fail(f"a serving frame launched the pair kernel "
+             f"{serve_expand_launches} times, not once")
     serve_table_launches = table_launches(table_before)
     if serve_table_launches != (1, 0):
         fail(f"a serving frame launched the parameter-table kernels "
@@ -2498,6 +2600,7 @@ def main():
 
         reset_launches()
         scan_before = gt.render.scan.max_scan.launches
+        expand_before = binning.expand_pairs.launches
         table_before = table_launches()
         topo, (loss0, hits0, gnorm0) = train_window(train_model, capture=True)
         torch.cuda.synchronize()
@@ -2510,6 +2613,10 @@ def main():
         if bind_scan_launches != 4:
             fail(f"the unbanded bind filled its runs in "
                  f"{bind_scan_launches} max-scan launches, not 4")
+        bind_expand_launches = binning.expand_pairs.launches - expand_before
+        if bind_expand_launches != 1:
+            fail(f"the unbanded bind launched the pair kernel "
+                 f"{bind_expand_launches} times, not once")
         overflow = int(topo.overflow)
         print(json.dumps({"phase": "train_window", "steps": TRAIN_K,
                           "capacity": list(trainer_r.capacity),
@@ -3091,6 +3198,13 @@ def main():
          "n": scan_res["n"], "ms": scan_res["ms"],
          "bound_ms": scan_res["bound_ms"], "bound_by": "bytes",
          "library_ms": scan_res["library_ms"]},
+        # no TPU kernel: the JAX package expands its pairs with XLA ops; the
+        # plain version is the port's torch route, times at the garden frame
+        {"name": "bin_expand", "route": "cuda",
+         "source": f"{PKG}/csrc/bin_expand.cu", "replaces": None,
+         "launches": {"serving_frame": serve_expand_launches,
+                      "unbanded_bind": bind_expand_launches},
+         **expand_res, "library_ms": None},
         # no TPU kernel: the JAX package builds its table with XLA ops and
         # its backward by autodiff; the plain versions are the port's
         # eager routes, times at 5M (300k beside)

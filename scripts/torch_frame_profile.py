@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of a serving frame, a training step, the garden-scale
-banded step or a pose step of the PyTorch port goes, on the card, read
-from the program's own spans and counters.
+banded step, the garden serving frame or a pose step of the PyTorch port
+goes, on the card, read from the program's own spans and counters.
 
 Runs one path on chip_smoke.py's scenes at 1920x1088 under
 `utils.profiling.trace(DIR)` for a few frames or steps after a warm-up:
@@ -12,6 +12,8 @@ Runs one path on chip_smoke.py's scenes at 1920x1088 under
     once) against a constant target;
   * --garden: the banded `Trainer.step` on the 5M garden scene, y-sorted,
     2 span bands, refresh every 10 steps (a bind in the stretch);
+  * --garden-serve: the serving frame on the 5M garden scene, unbanded,
+    a new camera each frame as in serving;
   * --pose: `optimize_camera_poses` of the frame's camera perturbed as
     chip_smoke.py perturbs it, against the unperturbed render.
 It prints JSON lines: the card; the program's span table per frame or
@@ -24,7 +26,8 @@ trace (`trace.json`) and the span table (`span_table.json`).
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 scripts/torch_frame_profile.py [--train | --garden | --pose] \
+    python3 scripts/torch_frame_profile.py [--train | --garden |
+        --garden-serve | --pose] \
         [--units N] [--out DIR]
 """
 
@@ -87,11 +90,15 @@ def report(logdir, wall_s, card):
               flush=True)
 
 
-def serving(gt, torch, chip_smoke, dev):
+def serving(gt, torch, chip_smoke, dev, garden_scale=False):
     import numpy as np
     cfg = gt.DEFAULT_CONFIG
     w, h = chip_smoke.FULL_W, chip_smoke.FULL_H
-    model = chip_smoke.bench_scene(gt, torch, dev)
+    if garden_scale:
+        model = chip_smoke.garden_scene(gt, torch, dev)[0]
+        fovy = chip_smoke.GARDEN_FOVY
+    else:
+        model, fovy = chip_smoke.bench_scene(gt, torch, dev), 50.0
     r = gt.render.TiledRenderer(w, h, cfg, device=dev)
     frame = [0]
 
@@ -99,7 +106,7 @@ def serving(gt, torch, chip_smoke, dev):
         c2w = np.eye(4)
         c2w[0, 3] = 0.002 * frame[0]
         frame[0] += 1
-        return gt.Camera.from_fovy(w, h, 50.0, c2w)
+        return gt.Camera.from_fovy(w, h, fovy, c2w)
 
     r.plan(model, [camera()])
 
@@ -167,10 +174,12 @@ def main():
     path = p.add_mutually_exclusive_group()
     path.add_argument("--train", action="store_true")
     path.add_argument("--garden", action="store_true")
+    path.add_argument("--garden-serve", action="store_true")
     path.add_argument("--pose", action="store_true")
     p.add_argument("--units", type=int, default=0,
                    help="frames or steps traced (default 8 frames, 20 "
-                        "steps, 12 garden steps, 20 pose steps)")
+                        "steps, 12 garden steps, 8 garden frames, 20 pose "
+                        "steps)")
     p.add_argument("--out", default="", help="directory of the trace")
     args = p.parse_args()
     import torch
@@ -184,6 +193,7 @@ def main():
     print(json.dumps({"card": card}), flush=True)
     dev = torch.device("cuda", torch.cuda.current_device())
     name = ("train" if args.train else "garden" if args.garden else
+            "garden_serve" if args.garden_serve else
             "pose" if args.pose else "serve")
     logdir = args.out or os.path.join(ROOT, "chiprun_out", "frame_profile",
                                       name)
@@ -192,11 +202,13 @@ def main():
         unit()   # warm-up: builds the kernels
         steps[0], runs = args.units or 20, 1
     else:
-        make = {"serve": serving, "train": training, "garden": garden}[name]
-        unit = make(gt, torch, chip_smoke, dev)
+        make = {"serve": serving, "train": training, "garden": garden,
+                "garden_serve": lambda *a: serving(*a, garden_scale=True)}
+        unit = make[name](gt, torch, chip_smoke, dev)
         for _ in range(2):   # warm-up: builds the kernels, binds
             unit()
-        runs = args.units or {"serve": 8, "train": 20, "garden": 12}[name]
+        runs = args.units or {"serve": 8, "train": 20, "garden": 12,
+                              "garden_serve": 8}[name]
     torch.cuda.synchronize()
     with profiling.trace(logdir):
         t0 = time.perf_counter()

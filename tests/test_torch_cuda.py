@@ -81,6 +81,15 @@ kernel tolerances):
     alignment.  `bin_topology` with it against the same call on cummax:
     every topology and reduce-plan field equal, at the 300k frame and the
     5M frame with K3's plan and one contiguous band with the compact plan.
+  * Binning's pair expansion (`binning.expand_pairs`, csrc/bin_expand.cu)
+    against its plain version on the same card tensors: each slot's
+    Gaussian and int32 key, and every topology and reduce-plan field, bit
+    for bit, twice, after an allocator filled with a sentinel; the 300k
+    and 5M frames with K3's plan, a contiguous band with the compact plan,
+    a round-robin band, an overflowing capacity, a frame with no valid
+    Gaussian, Gaussians straddling the near plane and Gaussians covering
+    every tile; one pair-kernel launch a serving frame and an unbanded
+    step.
   * The parameter table's kernels (`rows_vjp.param_table_forward`,
     `param_table_backward`, csrc/param_table.cu) against the plain route
     on the card, after a NaN-poisoned allocator: the table and every
@@ -1206,6 +1215,170 @@ def test_binning_topology_with_max_scan_is_bit_identical(cuda, name,
         else:
             assert torch.equal(getattr(got, field),
                                getattr(want, field)), field
+
+
+# ---- binning's pair expansion: the kernel against the plain route ------------
+
+EXPAND_CASES = ["synth300k_reduce", "garden5m_reduce", "garden5m_band_compact",
+                "synth300k_stride2", "synth300k_overflow", "no_valid",
+                "near_plane", "covers_every_tile"]
+
+
+def _expand_case(cuda, name):
+    """A topology closure of one case, its capacity, and what the case
+    must show: "overflow", "empty" or "fits"."""
+    ts = BASE.tile_size
+    if name.startswith("garden"):
+        model, cam = _garden_model(cuda)
+    else:
+        model, cam = _synth_model(cuda)
+    w, h = cam.width, cam.height
+    nx, ny = w // ts, h // ts
+    if name == "no_valid":      # the camera turned away from the scene
+        c2w = np.diag([-1.0, 1.0, -1.0, 1.0])
+        cam = gt.Camera.from_fovy(w, h, 50.0, c2w)
+    if name in ("near_plane", "covers_every_tile"):
+        with torch.no_grad():
+            # four Gaussians straddling the near plane, or large ones
+            # wholly in front whose rects cover the frame
+            z, s = (-0.002, -3.0) if name == "near_plane" else (-2.9, -0.7)
+            model.means[:4] = torch.tensor([0.0, 0.0, z], device=cuda)
+            model.means[:4, 0] += torch.arange(4, device=cuda) * 1e-3
+            model.scales_log[:4] = s
+            model.opacity_logit[:4] = 2.0
+    if name.endswith("compact"):
+        model = model.sorted_for_camera(cam, BASE)
+    with torch.no_grad():
+        act = model.activate()
+        w2c, proj = _camera_mats(cam)
+        tab = binning.frame_cull_table(act, w2c, proj, w, h, BASE)
+    if name in ("near_plane", "covers_every_tile"):
+        rect = torch.stack([tab.tx0[:4], tab.ty0[:4], tab.tx1[:4],
+                            tab.ty1[:4]], dim=1).cpu()
+        assert bool(tab.valid[:4].all())
+        assert torch.equal(rect, torch.tensor([[0, 0, nx - 1, ny - 1]] * 4,
+                                              dtype=torch.int32))
+        near = float(tab.depth[:4].max()) < 0.05
+        assert near == (name == "near_plane")
+    if name == "no_valid":
+        assert not bool(tab.valid.any())
+    kw = {}
+    if name.endswith("compact"):
+        cap, cap_pad, cl, cr, crg = bd.plan_capacity_banded(
+            model, cam, 2, BASE, with_reduce=True, mode="contig")
+        kw = dict(row_offset=0, row_count=ny // 2, capacity_reduce=cr,
+                  capacity_live=cl, capacity_range=crg)
+    elif name.endswith("stride2"):
+        with torch.no_grad():
+            cap, cap_pad = binning.plan_capacity_from_table(
+                tab, proj, w, h, BASE, band=(1, 2))
+        kw = dict(row_offset=1, row_stride=2)
+    else:
+        r = gt.render.TiledRenderer(w, h, BASE, device=cuda)
+        cap, cap_pad = r.plan(model, [cam])
+        kw = dict(capacity_reduce=r.capacity_reduce)
+        if name.endswith("overflow"):
+            cap = cap // 4 // BASE.chunk_size * BASE.chunk_size
+            kw = {}
+    expect = ("overflow" if name.endswith("overflow") else
+              "empty" if name == "no_valid" else "fits")
+
+    def topology():
+        with torch.no_grad():
+            return binning.bin_topology_from_table(tab, proj, w, h, BASE, cap,
+                                                   cap_pad, **kw)
+    return topology, cap, expect
+
+
+@pytest.mark.parametrize("name", EXPAND_CASES)
+def test_pair_expansion_kernel_is_bit_identical(cuda, name, monkeypatch):
+    """`bin_topology_from_table` with its expansion on the kernels against
+    the same call on the plain version (`_expand_pairs_plain`, patched in
+    here) on the same card tensors: the slots' Gaussians and keys, and
+    every topology and reduce-plan field, bit for bit, twice, each after
+    an allocator filled with a sentinel.  The 300k and 5M frames with K3's
+    plan, the first contiguous band of the y-sorted 5M scene with the
+    compact plan, a round-robin band, a capacity that overflows, a frame
+    with no valid Gaussian, Gaussians straddling the near plane
+    (full-screen rects) and Gaussians whose rects cover every tile."""
+    topology, cap, expect = _expand_case(cuda, name)
+    seen = []
+    kernel = binning.expand_pairs
+
+    def spy(*args):
+        seen.append((args, kernel(*args)))
+        return seen[-1][1]
+    monkeypatch.setattr(binning, "expand_pairs", spy)
+    got = []
+    for _ in range(2):
+        torch.full((3 * cap + 64,), SCAN_SENTINEL, dtype=torch.int64,
+                   device=cuda)
+        before = kernel.launches
+        got.append(topology())
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+    monkeypatch.setattr(binning, "expand_pairs", binning._expand_pairs_plain)
+    want = topology()
+    assert len(seen) == 2
+    for args, (pair_g, key) in seen:
+        want_g, want_key = binning._expand_pairs_plain(*args)
+        assert pair_g.dtype == torch.int64 and key.dtype == torch.int32
+        assert torch.equal(pair_g, want_g)
+        assert torch.equal(key, want_key)
+    if expect == "overflow":
+        assert int(want.overflow) > 0
+    else:
+        assert int(want.overflow) == 0
+        assert (int(want.num_pairs) == 0) == (expect == "empty")
+    for topo in got:
+        assert (topo.red is None) == (want.red is None)
+        for field in binning.BinTopology._fields:
+            if field == "red":
+                for f in (type(want.red)._fields if want.red is not None
+                          else ()):
+                    assert torch.equal(getattr(topo.red, f),
+                                       getattr(want.red, f)), f"red.{f}"
+            else:
+                assert torch.equal(getattr(topo, field),
+                                   getattr(want, field)), field
+
+
+def test_pair_kernel_launches_once_a_frame_and_a_step(cuda):
+    """A serving frame and an unbanded step each launch the pair kernel
+    once; the counter `gvrt.binning.expand.kernel` counts the same."""
+    from gvrt_tpu_torch.utils import profiling
+    g = torch.Generator(device=cuda).manual_seed(24)
+    model = gt.random_gaussians(g, 2000, extent=0.8, device=cuda)
+    with torch.no_grad():
+        model.means[:, 2] -= 3.0
+    cam = gt.Camera.from_fovy(64, 64, 60.0, np.eye(4))
+    r = gt.render.TiledRenderer(64, 64, BASE, device=cuda)
+    tr = gt.train.Trainer(64, 64, BASE, gt.train.TrainConfig(),
+                          r.plan(model, [cam]), device=cuda)
+    state = tr.init(model)
+    batch = gt.parallel.camera_batch([cam], BASE, cuda)
+    target = 0.3 * torch.ones((1, 64, 64, 3), device=cuda)
+
+    def frame():
+        with torch.no_grad():
+            r.render(model, cam)
+
+    def delta(fn):
+        before = binning.expand_pairs.launches
+        fn()
+        torch.cuda.synchronize()
+        return binning.expand_pairs.launches - before
+    frame()
+    tr.step(state, batch, target)
+    profiling.reset()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        counts = [delta(frame), delta(lambda: tr.step(state, batch, target))]
+    rec = profiling.recorded()
+    profiling.reset()
+    assert counts == [1, 1]
+    assert rec["counts"]["gvrt.binning.expand.kernel"] == 2
 
 
 # ---- the parameter table: both kernels against the plain route ---------------

@@ -197,6 +197,25 @@ def test_cpu_run_fills_count_no_scan_kernel():
     assert rec["counts"].get("gvrt.binning.scan", 0) == 0
 
 
+def test_cpu_expansion_counts_no_pair_kernel():
+    """On the CPU binning's pair expansion takes its plain version: a frame
+    and an unbanded step bin, `expand_pairs` counts no launch and the pair
+    kernel's counter stays at 0."""
+    expand = gt.render.binning.expand_pairs
+    r, model, cam = _frame("cpu")
+    step = _unbanded("cpu")
+    before = expand.launches
+    with torch.profiler.profile():
+        with torch.no_grad():
+            r.render(model, cam)
+        step()
+    rec = profiling.recorded()
+    assert rec["units"] == {"gvrt.frame": 1, "gvrt.step": 1}
+    assert rec["spans"]["gvrt.binning.expand"]["calls"] == 2
+    assert expand.launches == before
+    assert rec["counts"].get("gvrt.binning.expand.kernel", 0) == 0
+
+
 def test_self_time_is_duration_less_children():
     r, model, cam = _frame("cpu")
     with torch.profiler.profile():
