@@ -14,8 +14,11 @@ Subcommands (the JAX package's CLI, as far as this port reaches):
              (--optimize-poses, --perturb-poses)
 
 `--bands N` renders and trains in N sequential tile-row bands (bounded
-memory for garden-scale scenes, `render/banded.py`).  `train --devices N`
-shards each camera batch over N ranks, one per card (`parallel/`).
+memory for garden-scale scenes, `render/banded.py`).  `render` and
+`benchmark` take `--mesh NAME|PATH.glb`: opaque mesh objects inserted into
+the scene, served with it in one frame (`render/combined.py`).
+`train --devices N` shards each camera batch over N ranks, one per card
+(`parallel/`).
 Everything runs on the card unless ``--device cpu`` is given.
 
 Run as:  python -m 3dgvrt_lightfield_tpu_torch <subcommand> [...]
@@ -108,6 +111,39 @@ def _dump_poses(cams, path):
     print(path)
 
 
+def _mesh_renderer(args, model, cams):
+    """The `CombinedRenderer` of `--mesh`, planned over up to 4 cameras.
+
+    NAME is a procedural scene of `hybrid.mesh.PROCEDURAL`, placed in the
+    model's bounds with z up (the orbit's up axis); PATH.glb (or .gltf)
+    goes through `hybrid.load_gltf`."""
+    from .config import DEFAULT_CONFIG
+    from .hybrid import load_gltf
+    from .hybrid.mesh import PROCEDURAL
+    from .render.combined import CombinedRenderer
+    if args.bands:
+        raise SystemExit("--mesh renders unbanded frames: drop --bands")
+    if args.mesh in PROCEDURAL:
+        pos = model.means.detach().cpu().numpy()
+        scene = PROCEDURAL[args.mesh](pos.min(0), pos.max(0), up=2)
+    elif args.mesh.endswith((".glb", ".gltf")) and os.path.isfile(args.mesh):
+        scene = load_gltf(args.mesh)
+    else:
+        raise SystemExit(f"--mesh {args.mesh!r}: neither a procedural scene "
+                         f"({', '.join(PROCEDURAL)}) nor a .glb/.gltf file")
+    r = CombinedRenderer(args.width, args.height, scene, DEFAULT_CONFIG,
+                         impl=args.impl, device=args.device)
+    r.plan(model, cams[: min(4, len(cams))])
+    return r
+
+
+def _mesh_flag(p):
+    p.add_argument("--mesh", metavar="NAME|PATH.glb",
+                   help="insert opaque mesh objects: a procedural scene "
+                        "placed in the scene's bounds (quad_icosphere: a "
+                        "floor and a ball, one light) or a glTF file")
+
+
 class _BandedFrames:
     """Per-frame banded rendering with a shared (max-merged) capacity plan
     and the overflow -> re-plan-once contract of TiledRenderer.render;
@@ -158,7 +194,9 @@ def cmd_render(args):
     from .utils.evaluate import save_hit_counts
     model = _load_model(args)
     cams = _cameras(args, model)[: args.frames]
-    if args.bands:
+    if args.mesh:
+        r = _mesh_renderer(args, model, cams)
+    elif args.bands:
         r = _BandedFrames(model, cams, args.bands, args.impl)
     else:
         r = TiledRenderer(args.width, args.height, DEFAULT_CONFIG,
@@ -190,7 +228,9 @@ def cmd_benchmark(args):
     from .utils.benchmark import run_benchmark, save_results
     model = _load_model(args)
     cam = _cameras(args, model)[0]
-    if args.bands:
+    if args.mesh:
+        r = _mesh_renderer(args, model, [cam])
+    elif args.bands:
         # the banded bounded-memory frame: what --bands is for at scale
         r = _BandedFrames(model, [cam], args.bands, args.impl)
     else:
@@ -540,6 +580,7 @@ def main(argv=None):
                     help="dump per-pixel hit counts (ENABLE_HIT_COUNTS)")
     pr.add_argument("--dump-poses", action="store_true",
                     help="write camera_poses.json (hotkey P analog)")
+    _mesh_flag(pr)
     pr.set_defaults(fn=cmd_render)
 
     pb = sub.add_parser("benchmark", help="timed fps loop (-b)")
@@ -550,6 +591,7 @@ def main(argv=None):
     pb.add_argument("--benchfilename", "-bt", default="fps.txt")
     pb.add_argument("--benchframetimes", action="store_true", default=True)
     pb.add_argument("--frames", type=int, default=1)
+    _mesh_flag(pb)
     pb.set_defaults(fn=cmd_benchmark)
 
     pe = sub.add_parser("eval", help="EVAL_QUALITY: render + PSNR/SSIM")

@@ -496,6 +496,52 @@ def _icosphere(radius: float = 1.0, center=(0, 0, 0), subdiv: int = 2):
     return v, np.asarray(faces, np.int64), n
 
 
+def quad_icosphere(lo, hi, up: int = 1, subdiv: int = 2) -> MeshScene:
+    """Mesh props placed in the box lo..hi (a Gaussian cloud's bounds) with
+    `up` its vertical axis: a grey diffuse floor quad of two triangles
+    across the box's footprint a quarter of its height up (normal up), a
+    red-brown plastic icosphere (`subdiv` subdivisions, smooth normals; 320
+    triangles at 2) of radius 3/16 of the box's height resting on it under
+    the box's centre (at garden scale's orbit it and the floor then cover
+    21-23% of every view), and one white point light of radius 20 half the
+    box's height above its top, off the vertical through the centre by a
+    quarter of the footprint, so the ball's shadow falls beside it."""
+    lo, hi = np.asarray(lo, np.float64), np.asarray(hi, np.float64)
+    c, half = (lo + hi) / 2.0, (hi - lo) / 2.0
+    a, b = [k for k in range(3) if k != up]
+    y = c[up] - half[up] / 2.0
+
+    def point(pa, pb, pu):
+        p = np.zeros(3)
+        p[a], p[b], p[up] = pa, pb, pu
+        return p
+
+    floor = [point(lo[a], lo[b], y), point(lo[a], hi[b], y),
+             point(hi[a], hi[b], y), point(hi[a], lo[b], y)]
+    if np.cross(floor[1] - floor[0], floor[2] - floor[0])[up] < 0:
+        floor = floor[::-1]
+    # a Python float keeps `_icosphere`'s scaling in float32
+    r = float(3.0 * half[up] / 8.0)
+    s = MeshScene()
+    pos, idx = _quad(*floor)
+    s.add_object("floor", pos, idx, Material(
+        base_color=(0.7, 0.7, 0.7, 1.0), metallic=0.0, roughness=0.8))
+    v, f, n = _icosphere(r, point(c[a], c[b], y + r), subdiv=subdiv)
+    s.add_object("ball", v, f, Material(
+        base_color=(0.8, 0.3, 0.2, 1.0), metallic=0.2, roughness=0.4),
+        normals=n)
+    light = point(c[a] + half[a] / 2.0, c[b] + half[b] / 2.0,
+                  hi[up] + half[up])
+    s.lights.append(Light(position=tuple(float(x) for x in light),
+                          radius=20.0))
+    return s
+
+
+#: the procedural mesh scenes the CLI's `--mesh NAME` places in a
+#: Gaussian scene's bounds: name -> fn(lo, hi, up, subdiv) -> MeshScene
+PROCEDURAL = {"quad_icosphere": quad_icosphere}
+
+
 def cornell_scene(with_mirror: bool = True,
                   with_glass: bool = False) -> MeshScene:
     """Cornell-style box + spheres: the asset-free hybrid demo scene."""

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..utils.profiling import span
 from .mesh import MeshScene
 from .shade import (AMBIENT, SHADOW_EPS, LightAttenuation, _norm, base_f0,
                     direct_lighting, procedural_sky, reflect, refract,
@@ -57,6 +58,7 @@ class _DeviceScene:
         def t(x, dtype=torch.float32):
             return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
 
+        self.num_tris = scene.num_tris
         self.tris = pack_triangles(scene.tri_pos, cfg.tri_chunk, device=dev)
         self.tri_normal = t(scene.tri_normal)      # (T, 3, 3)
         self.tri_tangent = t(scene.tri_tangent)    # (T, 3, 4)
@@ -285,6 +287,7 @@ class HybridRenderer:
         self.device = resolve_device(device)
 
     @torch.no_grad()
+    @span("gvrt.frame")
     def render(self, scene: MeshScene, camera, time: float = 0.0):
         """Render one frame -> dict of rgb (H, W, 3), depth (H, W), object
         (H, W) int32 (-1 on a miss) and the G-buffer planes position,

@@ -16,6 +16,10 @@ brute-force scan's.  Here the skip is a mask on the device (`torch.where`
 on the carry) rather than a branch: a branch would read a device value on
 the host once per (block, chunk).  Rays are computed `batch` at a time
 (whole cull blocks), which bounds the (rays, chunk) temporaries.
+
+Spans: `gvrt.mesh.trace` around `closest_hit`, `gvrt.mesh.shadow` around
+`occluded`; each query adds its rays to `gvrt.mesh.rays` and its (cull
+block, chunk) pairs to `gvrt.mesh.chunk_tests`, both known from shapes.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
+from ..utils.profiling import count, span
 
 #: back-face/parallel tolerance (Möller-Trumbore determinant cutoff)
 EPS_DET = 1e-9
@@ -239,6 +244,14 @@ def _closest_hit_blocks(rays, tris, tmin, tmax):
     return best_t, best_tri, best_u, best_v
 
 
+def _count_query(n_rays: int, n_blocks: int, tris: TrianglePack):
+    """The counters of one trace query, known from shapes alone: the rays
+    traced and the (cull block, chunk) pairs computed."""
+    count("gvrt.mesh.rays", n_rays)
+    count("gvrt.mesh.chunk_tests", n_blocks * tris.v0.shape[0])
+
+
+@span("gvrt.mesh.trace")
 def closest_hit(rays: torch.Tensor, tris: TrianglePack,
                 tmin: Optional[torch.Tensor] = None,
                 tmax: Optional[torch.Tensor] = None,
@@ -257,6 +270,7 @@ def closest_hit(rays: torch.Tensor, tris: TrianglePack,
         else tmax
     rb, (tminb, tmaxb, validb), r0 = _pad_blocks(rays, [tmin, tmax],
                                                  min(block, r))
+    _count_query(r0, rb.shape[0], tris)
     # padded rays (valid == 0) get an empty [tmin, -INF) interval
     tmaxb = torch.where(validb > 0, tmaxb, -INF)
     outs = [_closest_hit_blocks(rb[s], tris, tminb[s], tmaxb[s])
@@ -282,6 +296,7 @@ def _occluded_blocks(rays, tris, tmin, tmax):
     return occ
 
 
+@span("gvrt.mesh.shadow")
 def occluded(rays: torch.Tensor, tris: TrianglePack, tmin: torch.Tensor,
              tmax: torch.Tensor, block: int = RAY_BLOCK,
              batch: int = RAY_BATCH) -> torch.Tensor:
@@ -289,6 +304,7 @@ def occluded(rays: torch.Tensor, tris: TrianglePack, tmin: torch.Tensor,
     traceRayEXT with TerminateOnFirstHit).  (R,) bool."""
     rb, (tminb, tmaxb, validb), r0 = _pad_blocks(rays, [tmin, tmax],
                                                  min(block, rays.shape[0]))
+    _count_query(r0, rb.shape[0], tris)
     tmaxb = torch.where(validb > 0, tmaxb, -INF)
     occ = [_occluded_blocks(rb[s], tris, tminb[s], tmaxb[s])
            for s in _block_groups(rb.shape[0], rb.shape[1], batch)]

@@ -7,7 +7,7 @@ of the reference's `LOAD_GLTF` FullRT variant (VulkanFullRT.cpp:922-927,
   1. mesh pass: per-pixel closest triangle hit (hybrid.trace) + GGX local
      shading with mesh-vs-mesh shadow rays (hybrid.pipeline machinery);
   2. Gaussian pass: the tiled march with each ray's tmax clipped to its
-     mesh hit distance (binning.tile_rays tmax_clip), so a surface ends the
+     mesh hit distance (the tile rays' tmax row), so a surface ends the
      march as the reference's payload tmax does; the kernels K1 (and, when
      differentiated, K1's residual, K2 and K3) run on these clipped rays;
   3. composite: out = gaussian_radiance + T_at_surface * mesh_color, the
@@ -17,27 +17,34 @@ of the reference's `LOAD_GLTF` FullRT variant (VulkanFullRT.cpp:922-927,
 transmittance-attenuated shadow ray from every mesh hit point to every
 light through the Gaussian field (the renderer's per-hit response math,
 gaussianfunctions.glsl:153-206) scales each light's GGX contribution.
+
+`CombinedRenderer` serves such frames: it packs and uploads the mesh once
+and holds a `TiledRenderer` for the Gaussian pass (its capacity plan,
+binning and rays).  A frame builds its tile rays once, unclipped (on the
+card in one launch of the camera-ray kernel); the mesh pass traces their
+rows 0:6 in pixel order, then each ray's tmax row is clipped to its mesh
+hit for the march.  Spans: `gvrt.mesh` (the mesh pass) with, inside it,
+`gvrt.mesh.trace` and `gvrt.mesh.shadow` (`hybrid/trace.py`) and
+`gvrt.mesh.shade` (the surface attributes and the shading, the shadow
+rays included); counter `gvrt.mesh.tris`, the triangles a frame traces.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
-from ..config import DEFAULT_CONFIG, RenderConfig, resolve_impl
+from ..config import DEFAULT_CONFIG, RenderConfig
 from ..hybrid.mesh import MeshScene
 from ..hybrid.pipeline import (HybridConfig, _DeviceScene, _shade_local,
                                _surface_attributes)
 from ..models.gaussians import ActivatedGaussians, GaussianModel
 from ..ops.kernels import particle_response
-from .binning import (bin_topology, binned_scene, gather_from_rows,
-                      plan_capacity, tile_rays, untile)
-from .pallas_forward import forward_dispatch
+from ..utils.profiling import count, span
+from .binning import plan_capacity, untile
 from .rows_vjp import frame_params
-from .tile_math import ACC_DEPTH, ACC_HITS, ACC_T
-from .tiled import _camera_mats
+from .tiled import TiledRenderer, _camera_mats
 
 
 #: acceptance epsilon for shadow-segment endpoints (self/light bias)
@@ -124,36 +131,110 @@ def gaussian_shadow_transmittance(act: ActivatedGaussians,
     return torch.exp(log_t)
 
 
-def _mesh_pass(dev: _DeviceScene, hcfg: HybridConfig, camera,
+def _mesh_pass(dev: _DeviceScene, hcfg: HybridConfig, rays: torch.Tensor,
                shadow_act: Optional[ActivatedGaussians] = None,
                cfg: Optional[RenderConfig] = None):
-    """Closest hit + local shading for every pixel, misses included (their
-    color is then zeroed); t = inf where missed.
+    """Closest hit + local shading for every pixel of the (H, W, 6) [o, d]
+    rays, misses included (their color is then zeroed); t = inf where
+    missed.  The camera sits at the first ray's origin.
 
     `shadow_act`, optional, turns on Gaussian->mesh shadows: each light's
     contribution is scaled by the Gaussian field's transmittance along the
     shadow ray from the hit point."""
-    o, d = camera.rays()
-    h, w = o.shape[:2]
-    rays = torch.as_tensor(np.concatenate([o, d], axis=-1).reshape(-1, 6),
-                           device=dev.device)
+    h, w = rays.shape[:2]
+    rays = rays.reshape(-1, 6)
+    count("gvrt.mesh.tris", dev.num_tris)
     hit = dev.closest_hit(rays)
     missed = hit["tri"] < 0
-    surf = _surface_attributes(dev, hit, rays)
-    cam_pos = torch.as_tensor(
-        np.asarray(camera.view_inverse, np.float32)[:3, 3], device=dev.device)
-    view = cam_pos - surf["pos"]
-    view = view / torch.linalg.vector_norm(
-        view, dim=-1, keepdim=True).clamp_min(1e-12)
-    light_atten = None
-    if shadow_act is not None:
-        light_atten = torch.stack([gaussian_shadow_transmittance(
-            shadow_act, surf["pos"], dev.lights[li, 0:3], cfg)
-            for li in range(dev.lights.shape[0])], dim=1)   # (P, L)
-    color = _shade_local(dev, hcfg, surf, view, light_atten=light_atten)
-    color = torch.where(missed[:, None], 0.0, color)
+    with span("gvrt.mesh.shade"):
+        surf = _surface_attributes(dev, hit, rays)
+        view = rays[0, 0:3] - surf["pos"]
+        view = view / torch.linalg.vector_norm(
+            view, dim=-1, keepdim=True).clamp_min(1e-12)
+        light_atten = None
+        if shadow_act is not None:
+            light_atten = torch.stack([gaussian_shadow_transmittance(
+                shadow_act, surf["pos"], dev.lights[li, 0:3], cfg)
+                for li in range(dev.lights.shape[0])], dim=1)   # (P, L)
+        color = _shade_local(dev, hcfg, surf, view, light_atten=light_atten)
+        color = torch.where(missed[:, None], 0.0, color)
     t_mesh = torch.where(missed, torch.inf, hit["t"])
     return color.reshape(h, w, 3), t_mesh.reshape(h, w)
+
+
+class CombinedRenderer:
+    """Gaussians and an opaque mesh scene in one frame, set up once.
+
+    The mesh (`scene`) is packed, Morton-ordered and uploaded here; the
+    Gaussian pass is a held `TiledRenderer`, whose `plan` this `plan` is.
+    One instance serves any camera of (width, height) and any model on
+    `device` (CUDA unless "cpu" is asked for); `impl` as `TiledRenderer`'s.
+    """
+
+    def __init__(self, width: int, height: int, scene: MeshScene,
+                 cfg: RenderConfig = DEFAULT_CONFIG,
+                 hcfg: HybridConfig = HybridConfig(), impl: str = "auto",
+                 device=None, capacity: Optional[tuple] = None):
+        self.gaussians = TiledRenderer(width, height, cfg, capacity=capacity,
+                                       impl=impl, device=device)
+        self.width, self.height, self.cfg, self.hcfg = width, height, cfg, hcfg
+        self.device, self.impl = self.gaussians.device, self.gaussians.impl
+        self.mesh = _DeviceScene(scene, hcfg, self.device)
+
+    def plan(self, model: GaussianModel, cameras, **kw) -> tuple:
+        """The Gaussian pass's capacity over `cameras`
+        (`TiledRenderer.plan`)."""
+        return self.gaussians.plan(model, cameras, **kw)
+
+    @span("gvrt.frame")
+    def render(self, model: GaussianModel, camera,
+               gaussian_shadows: bool = False):
+        """Render one frame -> the dict of `render_combined`.  Capacity
+        overflow re-plans and re-marches once, as `TiledRenderer.render`
+        does (one host read of the overflow count a frame).
+        Differentiable w.r.t. the model when grad is enabled: the mesh
+        pass carries no gradient (the clip distances only gate the march's
+        accept tests, and the shadow pass sees the model detached)."""
+        g = self.gaussians
+        g._check_model(model)
+        if g.capacity is None:
+            g.plan(model, [camera])
+        ts = self.cfg.tile_size
+        act, rows64 = frame_params(model, self.cfg, self.impl)
+        with torch.no_grad():
+            rays = g._rays(camera)                       # (T, 24, R)
+            with span("gvrt.mesh"):
+                mesh_rgb, t_mesh = _mesh_pass(
+                    self.mesh, self.hcfg,
+                    untile(rays[:, 0:6], self.width, self.height, ts),
+                    shadow_act=act if gaussian_shadows else None,
+                    cfg=self.cfg)
+            clip = t_mesh.reshape(self.height // ts, ts, self.width // ts,
+                                  ts).permute(0, 2, 1, 3).reshape(
+                                      rays.shape[0], -1)
+            rays[:, 7] = torch.minimum(rays[:, 7], clip)
+        out = g._render_once(act, rows64, camera, rays)
+        if int(out["overflow"]) > 0:
+            g._replan_merged(model, camera)
+            out = g._render_once(act, rows64, camera, rays)
+
+        transmittance = out["transmittance"]
+        rgb = out["rgb"] + transmittance[..., None] * mesh_rgb
+        # depth composites the mesh as the opaque tail (an alpha = 1
+        # surface at mesh_t adds T_at_surface * mesh_t, as the radiance
+        # composite does); pixels with neither Gaussians nor mesh stay 0
+        depth = out["depth"] + transmittance * torch.where(
+            torch.isfinite(t_mesh), t_mesh, 0.0)
+        return {
+            "rgb": rgb,
+            "gaussian_rgb": out["rgb"],
+            "mesh_rgb": mesh_rgb,
+            "mesh_t": t_mesh,
+            "depth": depth,
+            "transmittance": transmittance,
+            "hit_count": out["hit_count"],
+            "overflow": out["overflow"],
+        }
 
 
 def render_combined(model: GaussianModel, scene: MeshScene, camera,
@@ -163,49 +244,18 @@ def render_combined(model: GaussianModel, scene: MeshScene, camera,
                     capacity: Optional[tuple] = None,
                     gaussian_shadows: bool = False):
     """Render Gaussians and an opaque mesh scene in one frame, on the
-    model's device.
+    model's device: a one-frame `CombinedRenderer`, planned by
+    `plan_capacity` unless `capacity` is given.
 
     Returns rgb (H, W, 3), gaussian_rgb, mesh_rgb, mesh_t (per-pixel
     surface distance, inf where no mesh), depth, transmittance, hit_count
-    and overflow.  Differentiable w.r.t. the model when grad is enabled:
-    the mesh pass carries no gradient (the clip distances only gate the
-    march's accept tests, and the shadow pass sees the model detached).
+    and overflow.  Differentiable w.r.t. the model when grad is enabled.
     Serving callers wrap it in `torch.no_grad()`, which runs K1 alone.
     """
-    device = model.device
-    impl = resolve_impl(impl, device)
-    grad = torch.is_grad_enabled()   # the gather's backward reads the plan
-    width, height = camera.width, camera.height
-    dev = _DeviceScene(scene, hcfg, device)
-    act, rows64 = frame_params(model, cfg, impl)
-    with torch.no_grad():
-        mesh_rgb, t_mesh = _mesh_pass(
-            dev, hcfg, camera, shadow_act=act if gaussian_shadows else None,
-            cfg=cfg)
-        w2c, proj = _camera_mats(camera)
-        if capacity is None:
-            capacity = plan_capacity(act, w2c, proj, width, height, cfg)
-        rays = tile_rays(camera, cfg, device, tmax_clip=t_mesh, impl=impl)
-        topo = bin_topology(act, w2c, proj, width, height, cfg, *capacity,
-                            with_reduce_plan=grad)
-    binned = binned_scene(gather_from_rows(rows64, topo, cfg, impl), topo)
-    acc = forward_dispatch(binned, rays, cfg, impl)
-    img = untile(acc, width, height, cfg.tile_size)
-
-    transmittance = img[..., ACC_T]
-    rgb = img[..., 0:3] + transmittance[..., None] * mesh_rgb
-    # depth composites the mesh as the opaque tail (an alpha = 1 surface at
-    # mesh_t adds T_at_surface * mesh_t, as the radiance composite does);
-    # pixels with neither Gaussians nor mesh stay 0
-    depth = img[..., ACC_DEPTH] + transmittance * torch.where(
-        torch.isfinite(t_mesh), t_mesh, 0.0)
-    return {
-        "rgb": rgb,
-        "gaussian_rgb": img[..., 0:3],
-        "mesh_rgb": mesh_rgb,
-        "mesh_t": t_mesh,
-        "depth": depth,
-        "transmittance": transmittance,
-        "hit_count": img[..., ACC_HITS],
-        "overflow": binned.overflow,
-    }
+    if capacity is None:
+        with torch.no_grad():
+            capacity = plan_capacity(model.activate(), *_camera_mats(camera),
+                                     camera.width, camera.height, cfg)
+    r = CombinedRenderer(camera.width, camera.height, scene, cfg, hcfg,
+                         impl, model.device, capacity=capacity)
+    return r.render(model, camera, gaussian_shadows=gaussian_shadows)

@@ -133,11 +133,13 @@ class TiledRenderer:
         count("gvrt.rays.built")
         return tile_rays(camera, self.cfg, self.device, impl=self.impl)
 
-    def _render_once(self, act, rows64, camera):
+    def _render_once(self, act, rows64, camera, rays=None):
+        """One march of `camera` on `rays` (default: its rays, built)."""
         # a frame rendered without grad needs no gradient-reduce plan
         topo = self._topology(act, camera, torch.is_grad_enabled())
         chunks = gather_from_rows(rows64, topo, self.cfg, self.impl)
-        acc = forward_dispatch(binned_scene(chunks, topo), self._rays(camera),
+        acc = forward_dispatch(binned_scene(chunks, topo),
+                               self._rays(camera) if rays is None else rays,
                                self.cfg, self.impl)
         return _acc_outputs(acc, self.width, self.height, self.cfg, topo)
 

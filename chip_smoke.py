@@ -76,14 +76,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      version; K1 timed at one light-field camera's shapes;
  3d. the combined Gaussian-and-mesh frame of that scene at 1920x1088
      (render/combined.py; a quad at z = -3 over the left half, an
-     icosphere in front of the right half) under torch.no_grad(): K1
+     icosphere in front of the right half), served by a CombinedRenderer
+     under torch.no_grad(): its rays one launch of the camera-ray kernel,
+     the mesh pass's rows of them equal to Camera.rays(), K1
      launched once and nothing else, K1 against its plain version on the
      same binned inputs and the per-pixel clipped rays (hit counts equal on
      every ray), rgb = gaussian_rgb + T mesh_rgb, hit counts no higher
      than the unclipped frame's on every ray that did not saturate there,
      lower in sum over the quad, equal off the mesh; the frame, its mesh
-     pass and its Gaussian pass
-     timed, K1 on the clipped rays timed beside its bound;
+     pass, its Gaussian pass and its mesh spans (gvrt.mesh, .trace,
+     .shadow, .shade) timed, K1 on the clipped rays timed beside its bound;
  3e. the gradient of mean rgb through the combined frame of the
      3000-Gaussian 128^2 scene: K1's residual, K2 and K3 launched once
      each, all six parameter groups against the all-plain path, finite
@@ -92,7 +94,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
  3f. Gaussian shadows on that frame against the port on the CPU; the
      shadow pass timed beside its bound;
   4. the serving entry point: the CLI renders 4 orbit frames of that scene
-     at 1920x1088 from a PLY, unbanded and with --bands 4, and benchmarks
+     at 1920x1088 from a PLY, unbanded, with --bands 4 and with --mesh
+     quad_icosphere (and benchmarks that for 4 s), and benchmarks
      it with --bands 4; the CLI's `lightfield` from the PLY (4 PNGs and
      ray_dirs.npy);
  4b. the hybrid renderer (hybrid/): the CLI's `hybrid` at 512^2 (one
@@ -1466,6 +1469,24 @@ def trace_bound_ms(n_rays, n_tris, per_pair=OPS_TRACE):
                     n_rays * n_tris * per_pair)
 
 
+def mesh_span_ms(torch, frame):
+    """{"<span>_ms": device ms} of the mesh spans over one call of `frame`
+    under the profiler (`utils.profiling`'s record)."""
+    from gvrt_tpu_torch.utils import profiling
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        profiling.reset()
+        frame()
+        torch.cuda.synchronize()
+    spans = profiling.recorded()["spans"]
+    return {name.replace("gvrt.", "").replace(".", "_") + "_span_ms":
+            spans[name]["device_ms"] for name in (
+                "gvrt.frame", "gvrt.mesh", "gvrt.mesh.trace",
+                "gvrt.mesh.shadow", "gvrt.mesh.shade")}
+
+
 def primary_rays(torch, cam, dev):
     """A camera's per-pixel rays as (H*W, 6) [o, d] on `dev`."""
     import numpy as np
@@ -1503,11 +1524,18 @@ def combined_phases(gt, torch, dev, model, cam, full, full_rays, acc, small,
 
     # ---- 3d. the combined frame at full width -----------------------------
     t0 = time.time()
+    combined = comb.CombinedRenderer(FULL_W, FULL_H, scene, base, hcfg,
+                                     device=dev)
+    combined.plan(model, [cam])
     reset_launches()
+    rays_before = binning.camera_rays_kernel.launches
     with torch.no_grad():
-        out = comb.render_combined(model, scene, cam, base)
+        out = combined.render(model, cam)
     torch.cuda.synchronize()
     served = launches()
+    if binning.camera_rays_kernel.launches - rays_before != 1:
+        fail("the combined frame must build its rays in one launch of the "
+             "camera-ray kernel")
     if served["tile_forward"] != 1 or any(
             served[k] for k in served if k != "tile_forward"):
         fail(f"the combined frame launched {served}: K1 once and nothing "
@@ -1572,10 +1600,15 @@ def combined_phases(gt, torch, dev, model, cam, full, full_rays, acc, small,
         bnd = bound_ms(full, rays, got, base, n)
         act = model.activate()
         mats = _camera_mats(cam)
-        cap = binning.plan_capacity(act, *mats, w, h, base)
-        dev_scene = hpipe._DeviceScene(scene, hcfg, dev)
+        cap = combined.gaussians.capacity
+        dev_scene = combined.mesh
         t_mesh = out["mesh_t"]
         prim = primary_rays(torch, cam, dev)
+        # the mesh pass's rays: rows 0:6 of the frame's one ray build
+        mesh_rays = binning.untile(binning.tile_rays(cam, base, dev)[:, 0:6],
+                                   w, h, base.tile_size)
+        if not torch.equal(mesh_rays.reshape(-1, 6), prim):
+            fail("the mesh pass's rays differ from Camera.rays()")
 
         def gaussian_pass():
             r = binning.tile_rays(cam, base, dev, tmax_clip=t_mesh)
@@ -1584,19 +1617,19 @@ def combined_phases(gt, torch, dev, model, cam, full, full_rays, acc, small,
                                   h, base.tile_size)
 
         times = {
-            "frame_ms": cuda_ms(lambda: comb.render_combined(
-                model, scene, cam, base, capacity=cap), n=5),
+            "frame_ms": cuda_ms(lambda: combined.render(model, cam), n=5),
             "mesh_pass_ms": cuda_ms(lambda: comb._mesh_pass(
-                hpipe._DeviceScene(scene, hcfg, dev), hcfg, cam), n=5),
+                dev_scene, hcfg, mesh_rays), n=5),
             "gaussian_pass_ms": cuda_ms(gaussian_pass, n=5),
             "closest_hit_ms": cuda_ms(lambda: dev_scene.closest_hit(prim),
                                       n=3),
-            # the host's share of each pass: the camera's rays, made in
-            # NumPy (float64) and copied to the card
-            "mesh_rays_ms": cuda_ms(lambda: primary_rays(torch, cam, dev),
-                                    n=3),
-            "tile_rays_ms": cuda_ms(lambda: binning.tile_rays(
-                cam, base, dev, tmax_clip=t_mesh), n=3)}
+            # the frame's one ray build (the camera-ray kernel), which the
+            # mesh pass and the march share
+            "frame_rays_ms": cuda_ms(lambda: binning.tile_rays(
+                cam, base, dev), n=3),
+            # the mesh spans of one frame (device ms between the span's
+            # events; `gvrt.mesh.shade` holds `gvrt.mesh.shadow`)
+            **mesh_span_ms(torch, lambda: combined.render(model, cam))}
     tb = trace_bound_ms(h * w, scene.num_tris)
     res["combined_k1"] = {"launches": served["tile_forward"],
                           "max_abs_err": err, "ms": k_ms,
@@ -1613,6 +1646,7 @@ def combined_phases(gt, torch, dev, model, cam, full, full_rays, acc, small,
                       "chain_counts": n, "card": name, "power_limit": power,
                       "seconds": time.time() - t0}), flush=True)
     del out, rays, got, want, hits, hits_u, dev_scene, act, prim, t_mesh
+    del combined, mesh_rays
 
     # ---- 3e. the differentiated combined frame ----------------------------
     t0 = time.time()
@@ -2529,6 +2563,38 @@ def main():
         print(json.dumps({"phase": "cli_benchmark_bands", "output": [
             line for line in proc.stdout.splitlines() if "/s" in line],
             "seconds": time.time() - t0}), flush=True)
+        # the same frames with mesh props inserted (--mesh): the combined
+        # frame served through CombinedRenderer; then its benchmark loop
+        t0 = time.time()
+        mesh_dir = os.path.join(tmp, "renders_mesh")
+        proc = subprocess.run(
+            [sys.executable, "-m", PKG, "render", "--ply", ply, "--width",
+             str(FULL_W), "--height", str(FULL_H), "--frames", "4",
+             "--mesh", "quad_icosphere", "--out", mesh_dir], cwd=ROOT,
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"CLI render --mesh failed:\n{proc.stdout}\n{proc.stderr}")
+        mesh_levels = [int(np.abs(
+            gt.io.load_png(os.path.join(mesh_dir, f)).astype(np.int64)
+            - gt.io.load_png(os.path.join(out_dir, f)).astype(np.int64))
+            .max()) for f in pngs]
+        fps_file = os.path.join(tmp, "fps_mesh.txt")
+        bench = subprocess.run(
+            [sys.executable, "-m", PKG, "benchmark", "--ply", ply, "--width",
+             str(FULL_W), "--height", str(FULL_H), "--mesh",
+             "quad_icosphere", "-bw", "1", "-br", "4", "-bt", fps_file],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        print(json.dumps({"phase": "cli_render_mesh", "frames": sorted(
+            os.listdir(mesh_dir)), "max_level_diff_vs_plain": mesh_levels,
+            "benchmark": [line for line in bench.stdout.splitlines()
+                          if "/s" in line], "seconds": time.time() - t0}),
+            flush=True)
+        if sorted(os.listdir(mesh_dir)) != pngs or max(mesh_levels) == 0:
+            fail(f"CLI render --mesh wrote {os.listdir(mesh_dir)}, level "
+                 f"differences {mesh_levels} from the frames without it")
+        if bench.returncode != 0 or "rays/s" not in bench.stdout:
+            fail(f"CLI benchmark --mesh failed:\n{bench.stdout}\n"
+                 f"{bench.stderr}")
         # the light field from the PLY: 4 PNGs and the ray directions
         t0 = time.time()
         lf_dir = os.path.join(tmp, "lightfield")

@@ -1046,6 +1046,64 @@ def test_camera_ray_kernel_edge_cases(cuda):
     assert int(tmax.isnan().sum()) == tmax[::7].numel()
 
 
+@pytest.mark.parametrize("angle", (0.0, 45.0, 137.5))
+def test_combined_frame_rays_from_the_ray_kernel(cuda, angle):
+    """At 1920x1088 on the garden orbit, the combined frame's one ray
+    build (the camera-ray kernel, once) gives the mesh pass rows 0:6 equal
+    to `Camera.rays()` in float32 bit for bit, and the march rays equal to
+    `tile_rays(..., tmax_clip=mesh_t)` on the kernel and on the plain
+    route."""
+    import json
+    from gvrt_tpu_torch.render import combined, tiled
+    from portbench.entries.combined import mesh_scene
+    from portbench.reference.camera import orbit_view
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "portbench", "configs",
+                           "garden5m_mesh.json")) as f:
+        conf = json.load(f)
+    w, h = conf["resolution"]
+    view = orbit_view(conf["centre"], conf["camera_distance"], angle,
+                      conf["fovy_deg"], w, h)
+    cam = gt.Camera.from_fovy(w, h, view.fovy_deg, view.c2w)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    model = gt.random_gaussians(g, 3000, extent=2.0, device=cuda)
+    with torch.no_grad():
+        model.means[:, 2] -= 4.0
+    r = combined.CombinedRenderer(w, h, mesh_scene(gt, conf), BASE,
+                                  gt.hybrid.HybridConfig(), device=cuda)
+    seen = {}
+    real_mesh, real_march = combined._mesh_pass, tiled.forward_dispatch
+
+    def mesh_pass(dev, hcfg, rays, **kw):
+        seen["mesh"] = rays.clone()
+        return real_mesh(dev, hcfg, rays, **kw)
+
+    def march(binned, rays, cfg, impl):
+        seen["march"] = rays.clone()
+        return real_march(binned, rays, cfg, impl)
+    combined._mesh_pass, tiled.forward_dispatch = mesh_pass, march
+    try:
+        before = binning.camera_rays_kernel.launches
+        with torch.no_grad():
+            out = r.render(model, cam)
+        torch.cuda.synchronize()
+        launched = binning.camera_rays_kernel.launches - before
+    finally:
+        combined._mesh_pass, tiled.forward_dispatch = real_mesh, real_march
+    assert launched == 1
+    o, d = cam.rays()
+    want = torch.from_numpy(np.concatenate([o, d], -1)).to(cuda)
+    assert torch.equal(seen["mesh"].view(torch.int32),
+                       want.view(torch.int32))
+    on_mesh = float(out["mesh_t"].isfinite().float().mean())
+    assert 0.2 <= on_mesh <= 0.5, on_mesh
+    clipped = binning.tile_rays(cam, BASE, cuda, impl="cuda",
+                                tmax_clip=out["mesh_t"])
+    assert bool(_bit_equal(seen["march"], clipped).all())
+    _assert_rays_match(seen["march"], binning.tile_rays(
+        cam, BASE, cuda, impl="torch", tmax_clip=out["mesh_t"]))
+
+
 def _synth_model(cuda):
     """The 300k frame's scene and camera."""
     g = torch.Generator(device=cuda).manual_seed(0)

@@ -530,6 +530,76 @@ def test_pose_step_spans_and_counters():
 
 # ---- on the card -------------------------------------------------------------
 
+def _combined(device, res=RES):
+    """A planned `CombinedRenderer` over `_wall`, the model and a camera
+    of res x res; the frame renders."""
+    model = _scene(device)
+    r = gt.render.combined.CombinedRenderer(
+        res, res, _wall(), CFG, gt.hybrid.HybridConfig(), device=device)
+    cam = gt.Camera.from_fovy(res, res, 60.0, np.eye(4))
+    r.plan(model, [cam])
+    return r, model, cam
+
+
+MESH_SPANS = {"gvrt.mesh": "gvrt.frame", "gvrt.mesh.trace": "gvrt.mesh",
+              "gvrt.mesh.shade": "gvrt.mesh",
+              "gvrt.mesh.shadow": "gvrt.mesh.shade"}
+
+
+def test_combined_frame_spans():
+    """One combined frame is one `gvrt.frame` unit holding the mesh pass
+    (`gvrt.mesh`: the closest hits, then the shading with its shadow rays
+    inside) once, beside the Gaussian pass's spans, and one ray build."""
+    r, model, cam = _combined("cpu")
+    with torch.profiler.profile():
+        with torch.no_grad():
+            r.render(model, cam)
+    rec, log = profiling.recorded(), _log()
+    assert rec["units"] == {"gvrt.frame": 1}
+    for name, parent in MESH_SPANS.items():
+        assert rec["spans"][name]["calls"] == 1, name
+        assert _parents(log, name) == {parent}, name
+    for name in FRAME_SPANS:
+        assert name in rec["spans"], name
+    assert rec["counts"]["gvrt.rays.built"] == 1
+    assert rec["spans"]["gvrt.rays.numpy"]["calls"] == 1
+
+
+@pytest.mark.parametrize("res", (32, 96))
+def test_mesh_counters_are_the_shapes(res):
+    """`gvrt.mesh.tris` the scene's triangles; `gvrt.mesh.rays` a primary
+    and a shadow ray a pixel (one light); `gvrt.mesh.chunk_tests` the cull
+    blocks of 4096 rays times the one chunk, for each query."""
+    r, model, cam = _combined("cpu", res)
+    with torch.profiler.profile():
+        with torch.no_grad():
+            r.render(model, cam)
+    counts = profiling.recorded()["counts"]
+    blocks = -(-res * res // gt.hybrid.trace.RAY_BLOCK)
+    assert counts["gvrt.mesh.tris"] == 2
+    assert counts["gvrt.mesh.rays"] == 2 * res * res
+    assert counts["gvrt.mesh.chunk_tests"] == 2 * blocks
+
+
+def test_hybrid_frame_spans_its_trace():
+    """The hybrid app's frame is a `gvrt.frame` unit; its trace calls (the
+    primary rays, each bounce's, the shadow rays) record under it."""
+    scene = gt.hybrid.cornell_scene()
+    c2w = np.eye(4)
+    c2w[:3, 3] = [0.0, 1.0, 3.2]
+    cam = gt.Camera.from_fovy(16, 16, 60.0, c2w)
+    hc = gt.hybrid.HybridConfig(iterations=2)
+    with torch.profiler.profile():
+        gt.hybrid.HybridRenderer(16, 16, hc, device="cpu").render(scene, cam)
+    rec, log = profiling.recorded(), _log()
+    assert rec["units"] == {"gvrt.frame": 1}
+    # the primary rays and one bounce; a shadow ray a light at each
+    assert rec["spans"]["gvrt.mesh.trace"]["calls"] == 2
+    assert rec["spans"]["gvrt.mesh.shadow"]["calls"] == 2
+    assert _parents(log, "gvrt.mesh.trace") == {"gvrt.frame"}
+    assert rec["counts"]["gvrt.mesh.rays"] == 4 * 16 * 16
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -663,6 +733,29 @@ def test_host_syncs_match_sync_debug_mode(cuda):
     for name, (counted, warned, where) in got.items():
         assert warned > 0, name
         assert counted == warned, (name, counted, where)
+
+
+@pytest.mark.cuda
+def test_combined_frame_adds_no_host_sync(cuda):
+    """The combined frame syncs as often as the Gaussian frame alone: the
+    mesh pass reads nothing back and its counters come from shapes."""
+    r, model, cam = _combined(cuda)
+    plain = gt.render.TiledRenderer(RES, RES, CFG, device=cuda,
+                                    capacity=r.gaussians.capacity)
+    with torch.no_grad():
+        r.render(model, cam)   # builds the kernels
+        plain.render(model, cam)
+
+    def frame(renderer):
+        def run():
+            with torch.no_grad():
+                renderer.render(model, cam)
+        return run
+
+    counted, warned, where = _syncs(frame(r))
+    assert counted == warned, where
+    assert counted == _syncs(frame(plain))[0], where
+    assert profiling.recorded()["units"] == {"gvrt.frame": 1}
 
 
 @pytest.mark.cuda
