@@ -61,6 +61,12 @@ SIGNATURES = {
         "gvrt_bin_pair_keys": ([_P] * 9 + [_L, _I, _I, _I, _I, _I, _F, _F,
                                           _F, _F, _P], ctypes.c_int),
     },
+    "mesh_trace": {
+        "gvrt_mesh_closest_hit": ([_P, _L, _L, _P, _P, _F, _F] + [_P] * 4
+                                  + [_I, _I] + [_P] * 7, ctypes.c_int),
+        "gvrt_mesh_occluded": ([_P, _L, _L, _P, _P, _F, _F] + [_P] * 4
+                               + [_I, _I] + [_P] * 4, ctypes.c_int),
+    },
     "segment_reduce_compact": {
         "gvrt_segment_reduce_compact": ([_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                          _P], ctypes.c_int),

@@ -37,7 +37,7 @@ class HybridConfig:
     attenuation: LightAttenuation = LightAttenuation()
     gamma_correct: bool = True
     tri_chunk: int = 512
-    ray_block: int = 16384       # rays traced at once (whole cull blocks)
+    ray_block: int = 16384       # rays the CPU's chunk loop traces at once
 
     def replace(self, **kw) -> "HybridConfig":
         return dataclasses.replace(self, **kw)

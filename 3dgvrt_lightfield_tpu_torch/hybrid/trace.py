@@ -17,9 +17,17 @@ on the carry) rather than a branch: a branch would read a device value on
 the host once per (block, chunk).  Rays are computed `batch` at a time
 (whole cull blocks), which bounds the (rays, chunk) temporaries.
 
+That chunk loop is the route of rays on the CPU.  Rays on the card take
+`csrc/mesh_trace.cu` instead, one launch a query (a thread a ray over the
+pack staged in shared memory, a warp skipping each 32-lane group whose box
+none of its rays can touch; the boxes are `pack_triangles`' `groups`, made
+on the card only).  Its hits equal the chunk loop's: the same arithmetic
+in the same order, with `fmaf` where `_fma` rounds in float64.
+
 Spans: `gvrt.mesh.trace` around `closest_hit`, `gvrt.mesh.shadow` around
 `occluded`; each query adds its rays to `gvrt.mesh.rays` and its (cull
-block, chunk) pairs to `gvrt.mesh.chunk_tests`, both known from shapes.
+block, chunk) pairs to `gvrt.mesh.chunk_tests`, both known from shapes, on
+either route; each kernel launch counts `gvrt.mesh.trace.kernel`.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import _build
 from ..config import resolve_device
 from ..utils.profiling import count, span
 
@@ -45,6 +54,10 @@ RAY_BLOCK = 4096
 #: default rays computed at once (whole cull blocks): the (rays, chunk)
 #: temporaries of a 512-triangle chunk stay at tens of MB each
 RAY_BATCH = 16384
+#: lanes of the packed order that one skip decision of the kernel covers
+GROUP = 32
+#: the group boxes' outward widening, relative to their coordinates' size
+_WIDEN = 2.0 ** -16
 
 
 class TrianglePack(NamedTuple):
@@ -55,6 +68,9 @@ class TrianglePack(NamedTuple):
     tri_id: torch.Tensor  # (C, G) int64 original triangle id (or -1 pad)
     lo: torch.Tensor      # (C, 3) chunk AABB min (+INF for all-pad chunks)
     hi: torch.Tensor      # (C, 3) chunk AABB max (-INF for all-pad chunks)
+    #: (ceil(C * G / GROUP), 6) widened boxes (lo xyz, hi xyz) of each
+    #: GROUP lanes of the packed order, for the kernel; on the card only
+    groups: Optional[torch.Tensor] = None
 
 
 def _morton3(x: np.ndarray) -> np.ndarray:
@@ -78,7 +94,8 @@ def pack_triangles(tri_pos: np.ndarray, chunk: int = 512,
     With `reorder` (default), triangles are sorted (in NumPy, as the JAX
     package sorts them) by the Morton code of their centroid, so chunks are
     spatially compact and the per-chunk AABBs are tight.  `tri_id` carries
-    the original triangle index, so attribute gathers are unaffected.
+    the original triangle index, so attribute gathers are unaffected.  On
+    the card the pack also holds the kernel's `groups` (`_group_boxes`).
     """
     dev = resolve_device(device)
     t = np.asarray(tri_pos, np.float32)
@@ -116,7 +133,30 @@ def pack_triangles(tri_pos: np.ndarray, chunk: int = 512,
     return TrianglePack(chunked(v0), chunked(e1), chunked(e2),
                         torch.as_tensor(ids.reshape(c, chunk), device=dev),
                         torch.as_tensor(lo, device=dev),
-                        torch.as_tensor(hi, device=dev))
+                        torch.as_tensor(hi, device=dev),
+                        torch.as_tensor(_group_boxes(t, c * chunk),
+                                        device=dev)
+                        if dev.type == "cuda" else None)
+
+
+def _group_boxes(t: np.ndarray, lanes: int) -> np.ndarray:
+    """(ceil(lanes / GROUP), 6) boxes of the packed (T, 3, 3) triangles
+    `t`, GROUP lanes a box, each widened outward by `_WIDEN` of its largest
+    coordinate and extent and then by one f32 ulp, so that the kernel's
+    slab test holds every hit the intersection test can report in it.  A
+    group of pad lanes alone gets the empty box lo = INF > hi = -INF."""
+    n_groups = -(-lanes // GROUP)
+    box = np.empty((n_groups, 6), np.float32)
+    box[:, :3], box[:, 3:] = INF, -INF
+    for g in range(-(-len(t) // GROUP)):
+        pts = t[g * GROUP:(g + 1) * GROUP].reshape(-1, 3).astype(np.float64)
+        lo, hi = pts.min(0), pts.max(0)
+        w = _WIDEN * (np.abs(pts).max() + (hi - lo).max())
+        box[g, :3] = np.nextafter((lo - w).astype(np.float32),
+                                  np.float32(-INF))
+        box[g, 3:] = np.nextafter((hi + w).astype(np.float32),
+                                  np.float32(INF))
+    return box
 
 
 def _fma(a, b, c):
@@ -251,6 +291,118 @@ def _count_query(n_rays: int, n_blocks: int, tris: TrianglePack):
     count("gvrt.mesh.chunk_tests", n_blocks * tris.v0.shape[0])
 
 
+# ---- the kernel route: rays on the card ------------------------------------
+
+def _check_pack(rays: torch.Tensor, v0, e1, e2, tri_id, groups):
+    c, _, g = v0.shape
+    for name, x in (("v0", v0), ("e1", e1), ("e2", e2), ("tri_id", tri_id),
+                    ("groups", groups)):
+        if x is None:
+            continue
+        want = ({"tri_id": (c, g), "groups": (-(-c * g // GROUP), 6)}
+                .get(name, (c, 3, g)))
+        dtype = torch.int64 if name == "tri_id" else torch.float32
+        if (x.device != rays.device or x.dtype != dtype
+                or tuple(x.shape) != want or not x.is_contiguous()):
+            raise ValueError(f"the mesh-trace kernel takes a contiguous "
+                             f"{dtype} {name} {want} on {rays.device}; got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _ray_bounds(rays: torch.Tensor, bound: Optional[torch.Tensor], name):
+    """`bound` as the kernel takes it: None, or (R,) float32 contiguous on
+    the rays' device."""
+    if bound is None:
+        return None
+    if (bound.device != rays.device or bound.dtype != torch.float32
+            or tuple(bound.shape) != (rays.shape[0],)):
+        raise ValueError(f"{name} is {bound.dtype} {tuple(bound.shape)} on "
+                         f"{bound.device}, not float32 ({rays.shape[0]},) on "
+                         f"{rays.device}")
+    return bound.contiguous()
+
+
+def _launch(any_hit: bool, rays: torch.Tensor, v0, e1, e2, tri_id,
+            groups: Optional[torch.Tensor], tmin: Optional[torch.Tensor],
+            tmax: Optional[torch.Tensor],
+            stats: Optional[torch.Tensor] = None):
+    """One launch of `csrc/mesh_trace.cu` on the current stream (no
+    synchronisation) over the pack's planes v0, e1, e2 and tri_id: the
+    closest hits (t, tri, u, v) of (R, 6) rays, or with `any_hit` their
+    occluded flags.  `tmin`/`tmax` None read as RAY_TMIN/INF; `groups`
+    None turns the warp skip off (the result is the same); `stats`, two
+    zeroed int64 on the card or None, gets the (warp, group) visits and
+    the skipped ones.  A launch that returns adds one to
+    `occluded.launches` or `closest_hit.launches` and counts
+    `gvrt.mesh.trace.kernel`."""
+    if rays.dtype != torch.float32 or rays.dim() != 2 or rays.shape[1] != 6:
+        raise ValueError(f"rays are {rays.dtype} {tuple(rays.shape)}, not "
+                         f"float32 (R, 6)")
+    if rays.stride(1) != 1 or rays.stride(0) < 6:
+        rays = rays.contiguous()
+    _check_pack(rays, v0, e1, e2, tri_id, groups)
+    tmin, tmax = (_ray_bounds(rays, b, n) for b, n in ((tmin, "tmin"),
+                                                       (tmax, "tmax")))
+    r, dev = rays.shape[0], rays.device
+    c, _, g = v0.shape
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+    inputs = (rays.data_ptr(), rays.stride(0), r, ptr(tmin), ptr(tmax),
+              RAY_TMIN, INF, v0.data_ptr(), e1.data_ptr(), e2.data_ptr(),
+              tri_id.data_ptr(), c, g, ptr(groups))
+    lib = _build.load("mesh_trace")
+    if any_hit:
+        out = (torch.empty(r, dtype=torch.bool, device=dev),)
+        fn = lib.gvrt_mesh_occluded
+    else:
+        out = (torch.empty(r, device=dev),
+               torch.empty(r, dtype=torch.int64, device=dev),
+               torch.empty(r, device=dev), torch.empty(r, device=dev))
+        fn = lib.gvrt_mesh_closest_hit
+    with torch.cuda.device(dev):
+        err = fn(*inputs, *(x.data_ptr() for x in out), ptr(stats),
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mesh_trace kernel launch failed: CUDA error "
+                           f"{err}")
+    (occluded if any_hit else closest_hit).launches += 1
+    count("gvrt.mesh.trace.kernel")
+    return out[0] if any_hit else out
+
+
+_PACK_SCHEMA = ("Tensor rays, Tensor v0, Tensor e1, Tensor e2, "
+                "Tensor tri_id, Tensor? groups")
+_library = []   # the `torch.library.Library` that holds the two ops
+
+
+def _ops():
+    """`torch.ops.gvrt_port` with the trace's two ops, defined at first use:
+    each launch runs inside a dispatcher op with a CUDA kernel, so the
+    profiler links the kernel's device time to the op and through it into
+    `gvrt.mesh.trace` or `gvrt.mesh.shadow` (a bare ctypes launch links to
+    no range)."""
+    ns = torch.ops.gvrt_port
+    if not hasattr(ns, "mesh_closest_hit"):
+        lib = torch.library.Library("gvrt_port", "FRAGMENT")
+        lib.define(f"mesh_closest_hit({_PACK_SCHEMA}, Tensor? tmin, "
+                   f"Tensor? tmax) -> (Tensor, Tensor, Tensor, Tensor)")
+        lib.define(f"mesh_occluded({_PACK_SCHEMA}, Tensor tmin, "
+                   f"Tensor tmax) -> Tensor")
+        lib.impl("mesh_closest_hit", lambda *a: _launch(False, *a), "CUDA")
+        lib.impl("mesh_occluded", lambda *a: _launch(True, *a), "CUDA")
+        _library.append(lib)
+    return ns
+
+
+def _count_kernel_query(rays: torch.Tensor, tris: TrianglePack,
+                        block: int):
+    """The kernel route's shape counters: the chunk loop's (its cull
+    blocks of min(block, R) rays); `_launch` counts the launch."""
+    r = rays.shape[0]
+    _count_query(r, -(-r // min(block, r)) if r else 0, tris)
+
+
 @span("gvrt.mesh.trace")
 def closest_hit(rays: torch.Tensor, tris: TrianglePack,
                 tmin: Optional[torch.Tensor] = None,
@@ -259,10 +411,29 @@ def closest_hit(rays: torch.Tensor, tris: TrianglePack,
     """Nearest intersection per ray.
 
     rays (R, 6) [o, d]; returns a dict of (R,) tensors: t (INF on miss),
-    tri (int64, -1 on miss), u, v barycentrics.  Rays are culled in blocks
-    of `block` (contiguous rays come from one image region) and computed
-    `batch` rays at a time.
+    tri (int64, -1 on miss), u, v barycentrics.  On the CPU rays are culled
+    in blocks of `block` (contiguous rays come from one image region) and
+    computed `batch` rays at a time.  Rays on the card take one launch of
+    `csrc/mesh_trace.cu` (the op `gvrt_port::mesh_closest_hit`, no
+    synchronisation; adds one to `closest_hit.launches`), which accepts
+    `block` and `batch` and ignores them.
     """
+    if rays.device.type == "cuda":
+        _count_kernel_query(rays, tris, block)
+        t, tri, u, v = _ops().mesh_closest_hit(
+            rays, tris.v0, tris.e1, tris.e2, tris.tri_id, tris.groups, tmin,
+            tmax)
+        return {"t": t, "tri": tri, "u": u, "v": v}
+    return _closest_hit_plain(rays, tris, tmin, tmax, block, batch)
+
+
+closest_hit.launches = 0
+
+
+def _closest_hit_plain(rays, tris, tmin=None, tmax=None, block=RAY_BLOCK,
+                       batch=RAY_BATCH):
+    """`closest_hit`'s chunk loop, the route of rays on the CPU (on any
+    device when called directly)."""
     r = rays.shape[0]
     tmin = torch.full((r,), RAY_TMIN, device=rays.device) if tmin is None \
         else tmin
@@ -301,7 +472,24 @@ def occluded(rays: torch.Tensor, tris: TrianglePack, tmin: torch.Tensor,
              tmax: torch.Tensor, block: int = RAY_BLOCK,
              batch: int = RAY_BATCH) -> torch.Tensor:
     """Any-hit test in (tmin, tmax): the shadow-ray trace (raygen.rgen
-    traceRayEXT with TerminateOnFirstHit).  (R,) bool."""
+    traceRayEXT with TerminateOnFirstHit).  (R,) bool.  Rays on the card
+    take one launch of `csrc/mesh_trace.cu` (the op
+    `gvrt_port::mesh_occluded`; adds one to `occluded.launches`), which
+    ignores `block` and `batch`."""
+    if rays.device.type == "cuda":
+        _count_kernel_query(rays, tris, block)
+        return _ops().mesh_occluded(rays, tris.v0, tris.e1, tris.e2,
+                                    tris.tri_id, tris.groups, tmin, tmax)
+    return _occluded_plain(rays, tris, tmin, tmax, block, batch)
+
+
+occluded.launches = 0
+
+
+def _occluded_plain(rays, tris, tmin, tmax, block=RAY_BLOCK,
+                    batch=RAY_BATCH):
+    """`occluded`'s chunk loop, the route of rays on the CPU (on any device
+    when called directly)."""
     rb, (tminb, tmaxb, validb), r0 = _pad_blocks(rays, [tmin, tmax],
                                                  min(block, rays.shape[0]))
     _count_query(r0, rb.shape[0], tris)

@@ -7,9 +7,10 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
-  1. set-up: the card's name and power limit, TF32 off, the eight kernel
+  1. set-up: the card's name and power limit, TF32 off, the nine kernel
      libraries (tile_forward, tile_backward, camera_rays, max_scan,
-     param_table, bin_expand, segment_reduce, segment_reduce_compact) built
+     param_table, bin_expand, mesh_trace, segment_reduce,
+     segment_reduce_compact) built
      from csrc/ with nvcc, all at once;
  1b. the camera-ray kernel (csrc/camera_rays.cu) at
      1920x1088, tile 16, against the plain route on the card (NumPy rays,
@@ -40,6 +41,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      its pair-key kernel timed beside their byte bounds and the plain
      version; a serving frame (phase 3) and the unbanded bind (phase 5)
      must launch the pair kernel once;
+ 1f. the mesh-trace kernel (csrc/mesh_trace.cu) on the combined cell's
+     mesh (quad_icosphere in the garden box, 322 triangles) under its
+     first 1920x1088 orbit view and the shadow rays to its light, after a
+     NaN-poisoned allocator: ids and shadow bits equal to the chunk
+     loop's on the same card tensors on every pixel; closest_hit and
+     occluded timed beside the chunk loop, the kernel without its warp
+     skip and their bounds from the work the skip left
+     (trace_work_bound: the skip's share from the kernel's optional
+     counter; all pairs as brute_force_ms); phase 3d's served frame must
+     launch each query once;
   2. the tile kernels against their plain PyTorch versions on the same
      binned inputs: small scenes at tile_size=8/chunk_size=128, at the
      defaults with log-space transmittance, with another kernel degree, a
@@ -78,8 +89,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (render/combined.py; a quad at z = -3 over the left half, an
      icosphere in front of the right half), served by a CombinedRenderer
      under torch.no_grad(): its rays one launch of the camera-ray kernel,
-     the mesh pass's rows of them equal to Camera.rays(), K1
-     launched once and nothing else, K1 against its plain version on the
+     the mesh pass's rows of them equal to Camera.rays(), K1 and each
+     mesh-trace query (closest_hit, occluded) launched once and nothing
+     else, K1 against its plain version on the
      same binned inputs and the per-pixel clipped rays (hit counts equal on
      every ray), rgb = gaussian_rgb + T mesh_rgb, hit counts no higher
      than the unclipped frame's on every ray that did not saturate there,
@@ -1170,6 +1182,85 @@ def expand_phase(gt, torch, dev, name, power):
     return res
 
 
+def mesh_trace_phase(gt, torch, dev, name, power):
+    """Phase 1f: the mesh-trace kernel (csrc/mesh_trace.cu) on the
+    `garden5m_mesh.serve_combined` cell's mesh and rays: the CLI's
+    quad_icosphere props in the garden box (322 triangles, one 512-lane
+    chunk) under the orbit's first 1920x1088 view and the shadow rays to
+    its light.  After a NaN-poisoned allocator, the kernel's ids and shadow
+    bits against the chunk loop (`_closest_hit_plain`, `_occluded_plain`)
+    on the same card tensors, every pixel; each query timed beside the
+    chunk loop, the kernel with its warp skip off and its bound from the
+    work done (`trace_work_bound`).  Returns the kernel's line."""
+    import numpy as np
+    from gvrt_tpu_torch.hybrid import HybridConfig
+    from gvrt_tpu_torch.hybrid import pipeline as hpipe
+    from gvrt_tpu_torch.hybrid import trace
+    t0 = time.time()
+    c, e = np.asarray([0.0, 0.0, -4.0]), 2.0
+    scene = gt.hybrid.mesh.PROCEDURAL["quad_icosphere"](c - e, c + e, up=1,
+                                                        subdiv=2)
+    c2w = gt.io.cameras.look_at_inverse(c + [0.0, 0.0, 4.0], c,
+                                        np.asarray([0.0, 1.0, 0.0]))
+    cam = gt.Camera.from_fovy(FULL_W, FULL_H, 60.0, c2w)
+    rays = primary_rays(torch, cam, dev)
+    n_rays, n_tris = rays.shape[0], scene.num_tris
+    hcfg = HybridConfig()
+    dev_scene = hpipe._DeviceScene(scene, hcfg, dev)
+    pack = dev_scene.tris
+    tmin = torch.full((n_rays,), 1e-3, device=dev)
+
+    poison_allocator(torch, 4 * n_rays * 20, dev)
+    hit = trace.closest_hit(rays, pack, tmin=tmin)
+    want = trace._closest_hit_plain(rays, pack, tmin=tmin)
+    lpos = dev_scene.lights[0, 0:3]
+    pos = rays[:, 0:3] + hit["t"][:, None] * rays[:, 3:6]
+    dist = torch.linalg.vector_norm(lpos - pos, dim=-1)
+    sdir = (lpos - pos) / dist.clamp_min(1e-12)[:, None]
+    srays = torch.cat([pos + sdir * 0.1, sdir], dim=1)
+    stmin = torch.full_like(dist, 0.1)
+    stmax = torch.where(dist >= 0.5, dist - 0.5, dist)
+    poison_allocator(torch, 4 * n_rays * 20, dev)
+    occ = trace.occluded(srays, pack, stmin, stmax)
+    occ_want = trace._occluded_plain(srays, pack, stmin, stmax)
+    torch.cuda.synchronize()
+    checks = {
+        "tri_equal": bool(torch.equal(hit["tri"], want["tri"])),
+        "t_max_rel": float(((hit["t"] - want["t"]).abs()
+                            / want["t"].abs().clamp_min(1.0)).max()),
+        "uv_max_abs": float(max((hit[k] - want[k]).abs().max()
+                                for k in ("u", "v"))),
+        "occluded_equal": bool(torch.equal(occ, occ_want)),
+        "hit_share": float((hit["tri"] >= 0).float().mean()),
+        "shadowed_share": float((occ & (hit["tri"] >= 0)).float().mean())}
+    if not (checks["tri_equal"] and checks["occluded_equal"]) or \
+            checks["t_max_rel"] > 1e-6 or checks["uv_max_abs"] > 1e-6:
+        fail(f"the mesh-trace kernel against the chunk loop: {checks}")
+
+    def timed(any_hit, rays, tmin, tmax, query, plain):
+        ms = cuda_ms(lambda: query(rays, pack, tmin, tmax), n=20)
+        bound = trace_work_bound(torch, any_hit, rays, pack, tmin, tmax,
+                                 n_tris)
+        return {"ms": ms, "skip_off_ms": cuda_ms(lambda: trace._launch(
+                    any_hit, rays, *pack[:4], None, tmin, tmax), n=20),
+                "plain_ms": cuda_ms(lambda: plain(rays, pack, tmin, tmax),
+                                    n=2),
+                **bound, "bound_share": bound["bound_ms"] / ms}
+
+    res = {
+        "rays": n_rays, "triangles": n_tris,
+        "lanes": int(pack.tri_id.numel()),
+        "closest_hit": timed(False, rays, tmin, None, trace.closest_hit,
+                             trace._closest_hit_plain),
+        "occluded": timed(True, srays, stmin, stmax, trace.occluded,
+                          trace._occluded_plain),
+        "checks": checks}
+    print(json.dumps({"phase": "mesh_trace", **res, "card": name,
+                      "power_limit": power, "seconds": time.time() - t0}),
+          flush=True)
+    return res
+
+
 def bench_scene(gt, torch, device):
     """bench.py's synthetic scene, drawn from a torch.Generator."""
     g = torch.Generator(device=device).manual_seed(0)
@@ -1428,8 +1519,10 @@ def garden_kernel_times(torch, pf, chunks, rays, topo, cfg, name, power):
 #: hybrid/trace.py (`_intersect_chunk`, the gates, the argmin): pvec 9,
 #: det 5, |det| test 2, reciprocal 1, tvec 3, u 6, qvec 9, v 6, t 6, the
 #: barycentric tests 6, the t window and best-hit gates 7, the select 1,
-#: the argmin's compare 1.  The port rounds the products as fused
-#: multiply-adds in f64 (XLA's contraction); the bound counts f32 work.
+#: the argmin's compare 1.  The kernel rounds the products with fmaf,
+#: the chunk loop as fused multiply-adds in f64 (XLA's contraction); the
+#: kernel's bound counts f32 work on the pairs its warp skip leaves
+#: (trace_work_bound), all pairs being its brute_force_ms.
 OPS_TRACE = 9 + 5 + 2 + 1 + 3 + 6 + 9 + 6 + 6 + 6 + 7 + 1 + 1
 #: f32 operations per (Gaussian, point) pair of the Gaussian shadow pass,
 #: counted from render/combined.py: gro 18, grd 15, |grd|^2 5, cross 9,
@@ -1461,12 +1554,36 @@ def combined_mesh():
     return s
 
 
-def trace_bound_ms(n_rays, n_tris, per_pair=OPS_TRACE):
-    """The mesh trace's least time: n_rays x n_tris (real triangles) pairs
-    of `per_pair` f32 operations, against the rays read (6 floats, tmin,
-    tmax), the triangles read and the hits written (t, tri, u, v) once."""
+def trace_bound_ms(n_rays, n_tris, per_pair=OPS_TRACE, pairs=None):
+    """The mesh trace's least time: `pairs` (by default n_rays x n_tris
+    real triangles, every pair) of `per_pair` f32 operations, against the
+    rays read (6 floats, tmin, tmax), the triangles read and the hits
+    written (t, tri, u, v) once."""
     return roofline(n_rays * (8 + 4) * 4 + n_tris * 9 * 4,
-                    n_rays * n_tris * per_pair)
+                    (n_rays * n_tris if pairs is None else pairs) * per_pair)
+
+
+def trace_work_bound(torch, any_hit, rays, pack, tmin, tmax, n_tris):
+    """The mesh-trace kernel's least time for the work it does on these
+    inputs, from one more launch with its optional counter: the (warp,
+    group) visits its warp skip left, each 32 rays by 32 lanes (a 512-lane
+    pack's groups are whole) of OPS_TRACE f32 operations (3 fewer for
+    occluded: no best-hit gate, no argmin), against trace_bound_ms's
+    bytes; the box tests are not counted.  With the all-pairs figure
+    (brute_force_ms, which the skip lets the kernel beat) and the visits
+    and skipped ones."""
+    from gvrt_tpu_torch.hybrid import trace
+    per_pair = OPS_TRACE - 3 if any_hit else OPS_TRACE
+    st = torch.zeros(2, dtype=torch.int64, device=rays.device)
+    trace._launch(any_hit, rays, *pack[:4], pack.groups, tmin, tmax, st)
+    visits, skipped = st.tolist()
+    n_rays = rays.shape[0]
+    bound = trace_bound_ms(n_rays, n_tris, per_pair, pairs=(
+        visits - skipped) * 32 * trace.GROUP)
+    return {"bound_ms": bound[0], "bound_by": bound[1],
+            "brute_force_ms": trace_bound_ms(n_rays, n_tris, per_pair)[0],
+            "visits": visits, "skipped": skipped,
+            "skip_share": skipped / max(visits, 1)}
 
 
 def mesh_span_ms(torch, frame):
@@ -1513,6 +1630,7 @@ def combined_phases(gt, torch, dev, model, cam, full, full_rays, acc, small,
     hot spots."""
     from gvrt_tpu_torch.hybrid import HybridConfig
     from gvrt_tpu_torch.hybrid import pipeline as hpipe
+    from gvrt_tpu_torch.hybrid import trace
     from gvrt_tpu_torch.models.gaussians import LEAVES
     from gvrt_tpu_torch.render import binning
     from gvrt_tpu_torch.render import combined as comb
@@ -1529,17 +1647,20 @@ def combined_phases(gt, torch, dev, model, cam, full, full_rays, acc, small,
     combined.plan(model, [cam])
     reset_launches()
     rays_before = binning.camera_rays_kernel.launches
+    trace.closest_hit.launches = trace.occluded.launches = 0
     with torch.no_grad():
         out = combined.render(model, cam)
     torch.cuda.synchronize()
-    served = launches()
+    served = {**launches(), "mesh_closest_hit": trace.closest_hit.launches,
+              "mesh_occluded": trace.occluded.launches}
     if binning.camera_rays_kernel.launches - rays_before != 1:
         fail("the combined frame must build its rays in one launch of the "
              "camera-ray kernel")
-    if served["tile_forward"] != 1 or any(
-            served[k] for k in served if k != "tile_forward"):
-        fail(f"the combined frame launched {served}: K1 once and nothing "
-             f"else expected")
+    once = ("tile_forward", "mesh_closest_hit", "mesh_occluded")
+    if any(served[k] != 1 for k in once) or any(
+            served[k] for k in served if k not in once):
+        fail(f"the combined frame launched {served}: K1 and each mesh-trace "
+             f"query once and nothing else expected")
     h, w = FULL_H, FULL_W
     with torch.no_grad():
         rays = binning.tile_rays(cam, base, dev, tmax_clip=out["mesh_t"])
@@ -1630,15 +1751,19 @@ def combined_phases(gt, torch, dev, model, cam, full, full_rays, acc, small,
             # the mesh spans of one frame (device ms between the span's
             # events; `gvrt.mesh.shade` holds `gvrt.mesh.shadow`)
             **mesh_span_ms(torch, lambda: combined.render(model, cam))}
-    tb = trace_bound_ms(h * w, scene.num_tris)
+        tb = trace_work_bound(torch, False, prim, dev_scene.tris,
+                              torch.full((h * w,), 1e-3, device=dev), None,
+                              scene.num_tris)
     res["combined_k1"] = {"launches": served["tile_forward"],
                           "max_abs_err": err, "ms": k_ms,
                           "plain_ms": plain_ms, "bound_ms": bnd[0],
                           "bound_by": bnd[1], "library_ms": None}
     res["combined_trace"] = {"calls_per_frame": 1, "rays": h * w,
+                             "launches": {
+                                 "closest_hit": served["mesh_closest_hit"],
+                                 "occluded": served["mesh_occluded"]},
                              "triangles": scene.num_tris,
-                             "ms": times["closest_hit_ms"],
-                             "bound_ms": tb[0], "bound_by": tb[1]}
+                             "ms": times["closest_hit_ms"], **tb}
     res["combined_times"] = times
     print(json.dumps({"phase": "combined_full_width_times", **times,
                       "tile_forward": res["combined_k1"],
@@ -1860,17 +1985,18 @@ def hybrid_phase(gt, torch, dev, tmp, name, power):
                                             stmax, batch=hcfg.ray_block),
                      n=5)
     n_rays, n_tris = prim.shape[0], scene.num_tris
-    ch_b = trace_bound_ms(n_rays, n_tris)
-    # occluded: the same pairs without the best-hit gate and the argmin
-    occ_b = trace_bound_ms(n_rays, n_tris, OPS_TRACE - 3)
+    ch_b = trace_work_bound(torch, False, prim, dev_scene.tris,
+                            torch.full((n_rays,), 1e-3, device=dev), None,
+                            n_tris)
+    occ_b = trace_work_bound(torch, True, srays, dev_scene.tris, stmin,
+                             stmax, n_tris)
     hot = {"frame_ms": frame_ms,
            "closest_hit": {"calls_per_frame": calls["closest_hit"],
                            "rays": n_rays, "triangles": n_tris,
-                           "ms": ch_ms, "bound_ms": ch_b[0],
-                           "bound_by": ch_b[1]},
+                           "ms": ch_ms, **ch_b},
            "occluded": {"calls_per_frame": calls["occluded"],
                         "rays": n_rays, "triangles": n_tris, "ms": occ_ms,
-                        "bound_ms": occ_b[0], "bound_by": occ_b[1]}}
+                        **occ_b}}
     print(json.dumps({"phase": "hybrid_frame", "size": HYBRID_SIZE, **hot,
                       "hit_pixels": int((frame["object"] >= 0).sum()),
                       "card": name, "power_limit": power}), flush=True)
@@ -2241,6 +2367,9 @@ def main():
 
     # ---- 1e. binning's pair expansion --------------------------------------
     expand_res = expand_phase(gt, torch, dev, name, power)
+
+    # ---- 1f. the mesh trace's kernel ---------------------------------------
+    trace_res = mesh_trace_phase(gt, torch, dev, name, power)
 
     # ---- 2. kernels against plain versions ------------------------------
     def add_training_errs(errs):
@@ -3183,7 +3312,8 @@ def main():
                                for lb, e in shapes.items()
                                if kname + "_ms" in e}}
 
-    # the hot spots with no Pallas counterpart (plain PyTorch), per frame
+    # the hot spots with no Pallas counterpart (the mesh trace's kernel and
+    # plain PyTorch), per frame
     comb_grad = comb_res["combined_grad"]
     print(json.dumps({"phase": "hot_spots", "card": name,
                       "power_limit": power,
@@ -3282,6 +3412,14 @@ def main():
            "bound_by": "bytes", "library_ms": None,
            "at_300k": table_res["300k"][way]}
           for i, way in enumerate(("forward", "backward"))),
+        # no TPU kernel: the JAX package traces its meshes with plain jnp;
+        # the plain versions are the port's chunk loop, at the combined
+        # cell's mesh and rays
+        {"name": "mesh_trace", "route": "cuda",
+         "source": f"{PKG}/csrc/mesh_trace.cu", "replaces": None,
+         "launches": comb_res["combined_trace"]["launches"],
+         **{q: trace_res[q] for q in ("closest_hit", "occluded")},
+         "library_ms": None},
     ]}), flush=True)
     print(json.dumps({"phase": "done", "seconds_after_build":
                       time.time() - t_all}), flush=True)

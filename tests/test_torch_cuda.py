@@ -48,10 +48,17 @@ kernel tolerances):
     256: K1's limits above with hit counts equal on every ray, no ray that
     did not saturate unclipped with more hits than unclipped; K2's limits
     above.
-  * The mesh trace (`hybrid.trace.closest_hit`, `occluded`) and a hybrid
-    frame on the card against the port on the CPU: triangle ids,
-    occlusion and object ids equal, t within 1e-6 relative, rgb within
-    1e-5.
+  * The mesh trace (`hybrid.trace.closest_hit`, `occluded`: on the card
+    the kernel csrc/mesh_trace.cu) and a hybrid frame on the card against
+    the port on the CPU (the chunk loop): triangle ids, occlusion and
+    object ids equal, t within 1e-6 relative, rgb within 1e-5.  The
+    kernel also on edge cases (rays through shared edges and vertices,
+    duplicate triangles, rays in a triangle's plane, tmax below or at
+    tmin, 1000 rays over chunks of 40 lanes), after a NaN-poisoned
+    allocator, with u and v within 1e-6; on the combined cell's props at
+    1920x1088 against the chunk loop on the same card tensors, ids and
+    shadow bits equal on every pixel; and with its warp skip against the
+    same kernel without it (a null group-box pointer): bit for bit.
   * The camera-ray kernel (`binning.camera_rays_kernel`) against the plain
     route on the same card (`tile_rays(impl="torch")`: NumPy, the upload,
     `tile_ray_rows`), after a NaN-poisoned allocator: origins bit-equal;
@@ -941,6 +948,236 @@ def test_mesh_trace_on_the_card_matches_the_cpu(cuda):
     b = HybridRenderer(32, 32, hc, device="cpu").render(scene, cam)
     assert torch.equal(a["object"].cpu(), b["object"])
     torch.testing.assert_close(a["rgb"].cpu(), b["rgb"], rtol=0, atol=1e-5)
+
+
+# ---- the mesh trace's kernel against the chunk loop --------------------------
+
+def _grid_quads(n=8, z=-2.0):
+    """n x n unit-square quads of two triangles each over [0, 1]^2 at depth
+    z, every vertex at a multiple of 1/n (exact in float32)."""
+    tri = []
+    for i in range(n):
+        for j in range(n):
+            a, b = (i / n, j / n, z), ((i + 1) / n, j / n, z)
+            c, d = ((i + 1) / n, (j + 1) / n, z), (i / n, (j + 1) / n, z)
+            tri += [[a, b, c], [a, c, d]]
+    return np.asarray(tri, np.float32)
+
+
+def _down_rays(pts, z=0.0):
+    """Rays from (x, y, z) straight down -z."""
+    pts = np.asarray(pts, np.float32)
+    o = np.concatenate([pts, np.full((len(pts), 1), z, np.float32)], 1)
+    d = np.tile(np.asarray([0, 0, -1], np.float32), (len(pts), 1))
+    return np.concatenate([o, d], 1)
+
+
+def _trace_case(name):
+    """(triangles, rays, tmin, tmax, chunk) of one edge case."""
+    rng = np.random.default_rng(11)
+    half = [(i / 16, j / 16) for i in range(17) for j in range(17)]
+    if name == "edges_vertices":      # through every edge, diagonal, vertex
+        tri, rays, chunk = _grid_quads(), _down_rays(half), 40
+    elif name == "duplicates":        # each triangle twice: equal t
+        tri = np.concatenate([_grid_quads(), _grid_quads()])
+        rays, chunk = _down_rays(half + [(0.3, 0.6), (0.9, 0.05)]), 512
+    elif name == "parallel":          # in the triangles' plane, or beside
+        tri = np.concatenate([_grid_quads(),
+                              [[[2, 0, 0], [2, 0, -4], [2, 1, -2]]]])
+        y = rng.uniform(0, 1, 64)
+        o = np.stack([np.full(64, -1.0), y, np.full(64, -2.0)], 1)
+        o[32:, 2] += np.float32(1e-7) * rng.choice([-1, 1], 32)
+        d = np.tile([1.0, 0.0, 0.0], (64, 1))
+        d[::3] = [0.0, 0.0, -1.0]     # along the vertical triangle's plane
+        o[::3] = np.stack([np.full(22, 2.0), y[::3], np.zeros(22)], 1)
+        rays, chunk = np.concatenate([o, d], 1).astype(np.float32), 64
+    else:                             # a seeded soup, many chunks of 40
+        tri = (rng.uniform(-4, 4, (300, 1, 3))
+               + 0.4 * rng.standard_normal((300, 3, 3))).astype(np.float32)
+        o = rng.uniform(-6, 6, (1000, 3))
+        d = rng.standard_normal((1000, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        rays, chunk = np.concatenate([o, d], 1).astype(np.float32), 40
+    r = len(rays)
+    tmin = np.full(r, 0.1, np.float32)
+    tmax = rng.uniform(1.0, 12.0, r).astype(np.float32)
+    if name == "tmax_below_tmin":
+        tmax[::2] = tmin[::2] - rng.uniform(0.0, 1.0, (r + 1) // 2)
+        tmax[1::4] = tmin[1::4]
+    return tri, rays, tmin, tmax, chunk
+
+
+def _trace_on_both(cuda, tri, rays, tmin, tmax, chunk):
+    """(kernel's hits and occlusion, after a NaN-poisoned allocator; the
+    chunk loop's on the CPU); the kernel launched once for each."""
+    from gvrt_tpu_torch.hybrid import trace
+    packs = [trace.pack_triangles(tri, chunk, device=dev)
+             for dev in ("cpu", cuda)]
+    args = [torch.from_numpy(x) for x in (rays, tmin, tmax)]
+    want = trace.closest_hit(args[0], packs[0], tmin=args[1], tmax=args[2])
+    want_occ = trace.occluded(*args[:1], packs[0], *args[1:])
+    card = [x.to(cuda) for x in args]
+    before = (trace.closest_hit.launches, trace.occluded.launches)
+    torch.full((16 * len(rays) + 4096,), float("nan"), device=cuda)
+    got = trace.closest_hit(card[0], packs[1], tmin=card[1], tmax=card[2])
+    got_occ = trace.occluded(card[0], packs[1], card[1], card[2])
+    torch.cuda.synchronize()
+    assert (trace.closest_hit.launches, trace.occluded.launches) == \
+        (before[0] + 1, before[1] + 1)
+    return got, want, got_occ, want_occ
+
+
+def _assert_trace_matches(got, want, got_occ, want_occ):
+    assert got["tri"].dtype == torch.int64 and got_occ.dtype == torch.bool
+    assert torch.equal(got["tri"].cpu(), want["tri"])
+    for k in ("t", "u", "v"):
+        assert got[k].dtype == torch.float32
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-6,
+                                   atol=1e-6)
+    assert torch.equal(got_occ.cpu(), want_occ)
+
+
+@pytest.mark.parametrize("case", ("edges_vertices", "duplicates",
+                                  "parallel", "tmax_below_tmin", "ragged"))
+def test_mesh_trace_kernel_edge_cases(cuda, case):
+    """The kernel against the chunk loop on the CPU: rays through shared
+    edges and vertices, duplicate triangles (the lower packed index wins),
+    rays in or beside a triangle's plane, tmax below or at tmin, 1000 rays
+    (no multiple of the block) over chunks of 40 lanes (no multiple of a
+    warp's group): every id and occlusion bit equal, t, u, v within 1e-6,
+    every output written after a NaN-poisoned allocator."""
+    got, want, got_occ, want_occ = _trace_on_both(cuda, *_trace_case(case))
+    _assert_trace_matches(got, want, got_occ, want_occ)
+    hit = want["tri"] >= 0
+    assert bool(hit.any()) and bool(want_occ.any())
+    if case == "parallel":   # rays in a plane never hit its triangles
+        assert set(want["tri"][hit].tolist()) == {128}
+        assert not bool(hit[::3].any())
+
+
+def _orbit_props(cuda, width=1920, height=1088, angle_deg=30.0):
+    """The combined cell's props (quad_icosphere in the garden box, as
+    `portbench/entries/combined.py` builds them) packed on the card, and
+    the orbit camera's primary rays (R, 6) on the card."""
+    c, e = np.asarray([0.0, 0.0, -4.0]), 2.0
+    scene = gt.hybrid.mesh.PROCEDURAL["quad_icosphere"](c - e, c + e, up=1,
+                                                        subdiv=2)
+    a = np.radians(angle_deg)
+    eye = c + 4.0 * np.asarray([np.sin(a), 0.0, np.cos(a)])
+    c2w = gt.io.cameras.look_at_inverse(eye, c, np.asarray([0.0, 1.0, 0.0]))
+    cam = gt.Camera.from_fovy(width, height, 60.0, c2w)
+    o, d = cam.rays()
+    rays = torch.as_tensor(np.concatenate([o, d], -1).reshape(-1, 6),
+                           device=cuda)
+    return scene, rays
+
+
+def _shadow_rays(scene, hit, rays):
+    """`_shade_local`'s shadow rays to the scene's first light from each
+    hit (misses included, as there): (rays, tmin, tmax)."""
+    lpos = torch.as_tensor(scene.light_table()[0, :3], device=rays.device)
+    pos = rays[:, 0:3] + hit["t"][:, None] * rays[:, 3:6]
+    to_l = lpos - pos
+    dist = torch.linalg.vector_norm(to_l, dim=-1)
+    sdir = to_l / dist.clamp_min(1e-12)[:, None]
+    srays = torch.cat([pos + sdir * 0.1, sdir], dim=1)
+    return (srays, torch.full_like(dist, 0.1),
+            torch.where(dist >= 0.5, dist - 0.5, dist))
+
+
+def test_mesh_trace_kernel_on_the_combined_frame(cuda):
+    """The garden combined frame's 1920x1088 primary rays and their shadow
+    rays: the kernel's ids and shadow bits equal the chunk loop's (on the
+    same card tensors) on every pixel, t, u, v within 1e-6."""
+    from gvrt_tpu_torch.hybrid import trace
+    scene, rays = _orbit_props(cuda)
+    pack = trace.pack_triangles(scene.tri_pos, 512, device=cuda)
+    tmin = torch.full((rays.shape[0],), 1e-3, device=cuda)
+    got = trace.closest_hit(rays, pack, tmin=tmin)
+    want = trace._closest_hit_plain(rays, pack, tmin=tmin)
+    assert torch.equal(got["tri"], want["tri"])
+    for k in ("t", "u", "v"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-6)
+    hit = got["tri"] >= 0
+    assert 0.1 < float(hit.float().mean()) < 0.9
+    srays, stmin, stmax = _shadow_rays(scene, got, rays)
+    occ = trace.occluded(srays, pack, stmin, stmax)
+    assert torch.equal(occ, trace._occluded_plain(srays, pack, stmin, stmax))
+    assert 0 < int((occ & hit).sum()) < int(hit.sum())
+
+
+@pytest.mark.parametrize("case", ("soup", "props"))
+def test_mesh_trace_warp_skip_is_exact(cuda, case):
+    """The kernel with the warp skip against the same kernel without it
+    (a null group-box pointer): every output bit for bit, both queries;
+    the skip engaged (the optional counter's share of skipped (warp,
+    group) visits above 0)."""
+    from gvrt_tpu_torch.hybrid import trace
+    if case == "soup":
+        tri, rays_np, tmin_np, tmax_np, chunk = _trace_case("ragged")
+        rays, tmin, tmax = (torch.from_numpy(x).to(cuda)
+                            for x in (rays_np, tmin_np, tmax_np))
+    else:
+        scene, rays = _orbit_props(cuda, 480, 272)
+        tri, chunk = scene.tri_pos, 256
+        tmin = torch.full((rays.shape[0],), 1e-3, device=cuda)
+        tmax = None
+    pack = trace.pack_triangles(tri, chunk, device=cuda)
+    for any_hit in (False, True):
+        bounds = (tmin, tmax if tmax is not None
+                  else torch.full_like(tmin, 50.0)) if any_hit \
+            else (tmin, tmax)
+        stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+        skip = trace._launch(any_hit, rays, *pack[:4], pack.groups, *bounds,
+                             stats)
+        torch.full((64 * rays.shape[0],), float("nan"), device=cuda)
+        full = trace._launch(any_hit, rays, *pack[:4], None, *bounds)
+        if any_hit:
+            skip, full = (skip,), (full,)
+        for a, b in zip(skip, full):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), \
+                any_hit
+        visits, skipped = stats.tolist()
+        assert visits >= -(-rays.shape[0] // 32) and 0 < skipped <= visits
+
+
+def test_mesh_trace_counts_only_launches_that_return(cuda, monkeypatch):
+    """A query whose launch returns a CUDA error raises and adds nothing to
+    `.launches` or `gvrt.mesh.trace.kernel`; one that returns adds one to
+    each, also through `_launch` directly."""
+    from types import SimpleNamespace
+
+    from gvrt_tpu_torch import _build
+    from gvrt_tpu_torch.hybrid import trace
+    from gvrt_tpu_torch.utils import profiling
+    tri, rays_np, tmin_np, tmax_np, chunk = _trace_case("ragged")
+    rays, tmin, tmax = (torch.from_numpy(x).to(cuda)
+                        for x in (rays_np, tmin_np, tmax_np))
+    pack = trace.pack_triangles(tri, chunk, device=cuda)
+    trace.closest_hit(rays, pack, tmin=tmin, tmax=tmax)   # builds it
+
+    def launches():
+        return (trace.closest_hit.launches, trace.occluded.launches)
+    failing = SimpleNamespace(gvrt_mesh_closest_hit=lambda *a: 1,
+                              gvrt_mesh_occluded=lambda *a: 1)
+    before = launches()
+    profiling.reset()
+    with torch.profiler.profile():
+        with monkeypatch.context() as m:
+            m.setattr(_build, "load", lambda name: failing)
+            with pytest.raises(RuntimeError):
+                trace.closest_hit(rays, pack, tmin=tmin, tmax=tmax)
+            with pytest.raises(RuntimeError):
+                trace.occluded(rays, pack, tmin, tmax)
+        assert launches() == before
+        trace.closest_hit(rays, pack, tmin=tmin, tmax=tmax)
+        trace.occluded(rays, pack, tmin, tmax)
+        trace._launch(True, rays, *pack[:4], None, tmin, tmax)
+        torch.cuda.synchronize()
+    counts = profiling.recorded()["counts"]
+    profiling.reset()
+    assert launches() == (before[0] + 1, before[1] + 2)
+    assert counts["gvrt.mesh.trace.kernel"] == 3
 
 
 # ---- camera rays: the kernel against the plain route -------------------------

@@ -1,6 +1,7 @@
 """The port's spans and counters (`utils/profiling.py`): what a frame and
 a training step record, on the CPU, and on the card the host-sync counter
-against PyTorch's own sync debug mode.
+against PyTorch's own sync debug mode and the kernels' launches inside
+their layers' ranges.
 
 The CPU tests build small scenes with `gt.random_gaussians` (no JAX), so
 the file also runs where JAX is not installed; the card test is marked
@@ -756,6 +757,45 @@ def test_combined_frame_adds_no_host_sync(cuda):
     assert counted == warned, where
     assert counted == _syncs(frame(plain))[0], where
     assert profiling.recorded()["units"] == {"gvrt.frame": 1}
+
+
+@pytest.mark.cuda
+def test_mesh_trace_kernel_runs_inside_its_ranges(cuda):
+    """On the card each trace query of a combined frame is one launch of
+    the mesh-trace kernel, counted as `gvrt.mesh.trace.kernel` (2 a frame
+    with one light), inside its dispatcher op, which opens inside the
+    query's `gvrt.mesh.trace` or `gvrt.mesh.shadow` range: so
+    `mesh_trace_ms.combined` (`portbench/program_record.py`) reads the
+    kernels' device time, and nothing else launches there."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    from portbench import program_record
+    r, model, cam = _combined(cuda, 96)
+    with torch.no_grad():
+        r.render(model, cam)   # builds the kernels
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device=cuda).add_(1.0)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            r.render(model, cam)
+            r.render(model, cam)
+        torch.cuda.synchronize()
+    rec = profiling.recorded()
+    assert rec["units"]["gvrt.frame"] == 2
+    assert rec["counts"]["gvrt.mesh.trace.kernel"] == 4
+    us = [e.duration_ns() / 1e3
+          for e in prof.profiler.kineto_results.events()
+          if e.device_type() != DeviceType.CPU
+          and "mesh_trace_kernel" in e.name()]
+    assert len(us) == 4
+    got = program_record.launched_ms_per_unit(
+        SimpleNamespace(prof=prof), "gvrt.frame",
+        ["gvrt.mesh.trace", "gvrt.mesh.shadow"])
+    assert got == pytest.approx(sum(us) / 1e3 / 2, rel=1e-9)
 
 
 @pytest.mark.cuda
